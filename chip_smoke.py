@@ -212,6 +212,15 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int = 200) -> float:
+    """Host-clock ms per call of a function that synchronizes itself."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
 def _bits(t):
     import torch
 
@@ -243,8 +252,33 @@ def k1_case(n: int, ns: int, n_series: int, grouped: bool, dtype: str,
     return vals, valid, seg
 
 
+def check_k1(got: dict, plain: dict, dtype: str, what: str) -> float:
+    """count/min/max exact, the float sum within rtol 1e-12 (the
+    reference's own tolerance) → max |sum - plain|."""
+    import torch
+
+    worst = 0.0
+    for k in plain:
+        g = torch.as_tensor(got[k]).cpu()
+        p = plain[k].cpu()
+        if k == "sum" and dtype == "float64":
+            torch.testing.assert_close(g, p, rtol=1e-12, atol=1e-9,
+                                       equal_nan=True)
+            d = (g - p).abs()
+            d = d[~torch.isnan(d)]
+            worst = max(worst, float(d.max()) if len(d) else 0.0)
+        elif not torch.equal(_bits(g), _bits(p)):
+            raise AssertionError(f"K1 {k} differs from plain ({what})")
+    return worst
+
+
 def compare_k1(shape, seed: int, dev, n_series: int = 1,
-               grouped: bool = False) -> dict:
+               grouped: bool = False, call: bool = True) -> dict:
+    """K1 at one shape: against its plain version (three data variants,
+    twice each for bit-stable output), then timed: `ms` the CUDA entry on
+    device-resident rows with its layout staging, `kernel_ms` the launch
+    alone over staged buffers, `call_ms` the host wrapper from numpy in
+    to numpy out (what aggregate_column_host pays), `plain_ms`."""
     import torch
 
     from cnosdb_tpu_torch.ops import pallas_kernels as pk
@@ -268,50 +302,101 @@ def compare_k1(shape, seed: int, dev, n_series: int = 1,
         for k in got:
             if not torch.equal(_bits(got[k]), _bits(again[k])):
                 raise AssertionError(f"K1 {k} not bit-stable ({dtype})")
-            g, p = got[k].cpu(), plain[k].cpu()
-            if k == "sum" and dtype == "float64":
-                torch.testing.assert_close(g, p, rtol=1e-12, atol=1e-9,
-                                           equal_nan=True)
-                d = (g - p).abs()
-                d = d[~torch.isnan(d)]
-                worst = max(worst, float(d.max()) if len(d) else 0.0)
-            elif not torch.equal(_bits(g), _bits(p)):
-                raise AssertionError(f"K1 {k} differs from plain ({dtype})")
+        worst = max(worst, check_k1(got, plain, dtype, dtype))
+        if call:
+            host = pk.segment_partials_pallas(vals, valid, seg, ns)
+            worst = max(worst, check_k1(host, plain, dtype, "host wrapper"))
         if timed is None:
-            timed = (args, layout)
-    args, layout = timed
+            timed = (vals, valid, seg, args, layout)
+    vals, valid, seg, args, layout = timed
     ms = cuda_ms(lambda: pk.window_partials(*args, layout, ns))
+    launch = pk.prepare(*args, layout, ns)
+    kernel_ms = cuda_ms(launch, iters=200)
     plain_ms = cuda_ms(lambda: pk.window_partials_plain(*args, layout, ns))
+    call_ms = (host_ms(lambda: pk.segment_partials_pallas(vals, valid, seg,
+                                                          ns))
+               if call else None)
     moved = (n * (8 + 1 + 4)                      # values, valid, seg ids
              + layout.bases.nbytes + layout.slot_off.nbytes
-             + layout.order.nbytes + layout.seg_start.nbytes
+             + layout.fold_pos.nbytes + layout.seg_start.nbytes
              + ns * (4 + 8 * 3))                   # count/sum/min/max out
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst,
+    return {"ms": ms, "kernel_ms": kernel_ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "max_abs_err": worst,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
 
 
+def k1_threads(shape, seed: int, n_series: int, threads: int = 8,
+               repeats: int = 20) -> None:
+    """`threads` threads call the host wrapper at once, on as many
+    different inputs at the main-path shape, `repeats` times each; every
+    result is held against the plain version. Raises on a mismatch."""
+    import torch
+
+    from cnosdb_tpu_torch.ops import pallas_kernels as pk
+
+    n, ns, _dt = shape
+    cases = [k1_case(n, ns, n_series, False,
+                     "float64" if i % 2 == 0 else "int64", seed + 10 + i,
+                     i % 4 == 0, True) for i in range(threads)]
+    barrier = threading.Barrier(threads)
+
+    def work(i):
+        vals, valid, seg = cases[i]
+        barrier.wait()
+        return [pk.segment_partials_pallas(vals, valid, seg, ns)
+                for _ in range(repeats)]
+
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        results = list(pool.map(work, range(threads)))
+    for i, ((vals, valid, seg), runs) in enumerate(zip(cases, results)):
+        plain = pk.window_partials_plain(
+            torch.from_numpy(vals), torch.from_numpy(valid.astype(np.int8)),
+            torch.from_numpy(seg), pk.window_layout(seg, ns), ns)
+        dtype = str(vals.dtype)
+        for got in runs:
+            check_k1(got, plain, dtype, f"thread {i}")
+            for k in got:
+                if got[k].tobytes() != runs[0][k].tobytes():
+                    raise AssertionError(f"K1 {k} not bit-stable across "
+                                         f"threaded calls (thread {i})")
+
+
 def compare_k2(shape, seed: int, dev) -> dict:
+    """K2 at one [B, L]: the whole Gorilla decode and the scan alone
+    against their plain versions (twice, for bit-stable output), then
+    timed: `ms` gorilla_decode on the planes (the main path's call),
+    `kernel_ms` its launch alone into kept buffers, `scan_ms` xor_scan on
+    the words, `plain_ms` the plain decode."""
     import torch
 
     from cnosdb_tpu_torch.ops import device_decode as dd
 
     b, width = shape
     rng = np.random.default_rng(seed)
-    words = torch.from_numpy(rng.integers(
-        np.iinfo(np.int64).min, np.iinfo(np.int64).max, (b, width),
-        dtype=np.int64)).to(dev)
-    got = dd.xor_scan(words)
-    again = dd.xor_scan(words)
-    plain = dd.xor_scan_plain(words)
+    planes = torch.from_numpy(rng.integers(0, 256, (b, 8, width),
+                                           dtype=np.uint8)).to(dev)
+    got = dd.gorilla_decode(planes)
+    again = dd.gorilla_decode(planes)
+    plain = dd.gorilla_decode_plain(planes)
+    words = dd._gorilla_words(planes)
+    scan = dd.xor_scan(words)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-        raise AssertionError("K2 not bit-stable")
+        raise AssertionError("K2 decode not bit-stable")
     if not torch.equal(got, plain):
-        raise AssertionError("K2 differs from plain")
-    ms = cuda_ms(lambda: dd.xor_scan(words))
-    plain_ms = cuda_ms(lambda: dd.xor_scan_plain(words))
-    moved = b * width * 8 * 2
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": 0.0,
+        raise AssertionError("K2 decode differs from plain")
+    if not torch.equal(scan, plain):
+        raise AssertionError("K2 scan differs from plain")
+    ms = cuda_ms(lambda: dd.gorilla_decode(planes), iters=50)
+    out = torch.empty_like(got)
+    state = dd.k2_state(shape, dev)
+    kernel_ms = cuda_ms(lambda: dd._k2_launch(
+        "gorilla_decode_u8", planes, shape, out, state), iters=200)
+    scan_ms = cuda_ms(lambda: dd.xor_scan(words), iters=50)
+    plain_ms = cuda_ms(lambda: dd.gorilla_decode_plain(planes))
+    moved = b * width * (8 + 8)    # byte planes in, f64 bits out
+    return {"ms": ms, "kernel_ms": kernel_ms, "scan_ms": scan_ms,
+            "plain_ms": plain_ms, "max_abs_err": 0.0,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
 
 
@@ -465,6 +550,7 @@ def main(argv=None) -> int:
         c8 = lambda rs: check_cpu_max(rs, data, lo, hi, hosts)  # noqa
         run("cpu_max_all_8 (first)", sql8, c8)
         k1_warm, _k2 = run("cpu_max_all_8 (warm)", sql8, c8)
+        run("cpu_max_all_8 (warm)", sql8, c8)
         run("last_loc (warm)", SQL["last_loc"], lambda rs: check_last(rs,
                                                                       data))
         launches = {"K1": pk.launches, "K2": dd.xor_launches}
@@ -508,35 +594,55 @@ def main(argv=None) -> int:
     k1_shape = _most_launched(k1_shapes)
     k2_shape = _most_launched(k2_shapes)
     # the window holds 12 h of each selected host: 4320 rows per series
-    r1 = compare_k1(k1_shape, args.seed, dev,
-                    n_series=max(1, k1_shape[0] // (12 * 360)))
+    k1_series = max(1, k1_shape[0] // (12 * 360))
+    r1 = compare_k1(k1_shape, args.seed, dev, n_series=k1_series)
     r2 = compare_k2(k2_shape, args.seed, dev)
-    log(f"# K1 at {k1_shape}: {r1['ms']:.4f} ms (plain {r1['plain_ms']:.4f} "
-        f"ms, bound {r1['bound_ms']:.5f} ms for {r1['bytes']} B), "
-        f"max |sum - plain| {r1['max_abs_err']:.3g}; count/min/max exact, "
-        "sum rtol 1e-12; bit-stable over two runs")
-    log(f"# K2 at {k2_shape}: {r2['ms']:.4f} ms (plain {r2['plain_ms']:.4f} "
-        f"ms, bound {r2['bound_ms']:.5f} ms for {r2['bytes']} B), "
+    log(f"# K1 at {k1_shape}: ms {r1['ms']:.4f} (CUDA entry on device "
+        f"rows, layout staged), kernel_ms {r1['kernel_ms']:.4f} (launch "
+        f"alone), call_ms {r1['call_ms']:.4f} (host wrapper, numpy in to "
+        f"numpy out), plain {r1['plain_ms']:.4f} ms, bound "
+        f"{r1['bound_ms']:.6f} ms for {r1['bytes']} B; max |sum - plain| "
+        f"{r1['max_abs_err']:.3g}; count/min/max exact, sum rtol 1e-12; "
+        "bit-stable over two runs")
+    log(f"# K2 at {k2_shape}: ms {r2['ms']:.4f} (gorilla_decode, planes "
+        f"in), kernel_ms {r2['kernel_ms']:.4f} (launch alone), scan_ms "
+        f"{r2['scan_ms']:.4f} (xor_scan, words in), plain "
+        f"{r2['plain_ms']:.4f} ms, bound {r2['bound_ms']:.5f} ms for "
+        f"{r2['bytes']} B ({100 * r2['bound_ms'] / r2['ms']:.1f} % of it); "
         "bit-exact; bit-stable over two runs")
+    r2b = compare_k2((2, 262144), args.seed + 2, dev)
+    log(f"# K2 at (2, 262144): ms {r2b['ms']:.4f}, kernel_ms "
+        f"{r2b['kernel_ms']:.4f}, scan_ms {r2b['scan_ms']:.4f}, plain "
+        f"{r2b['plain_ms']:.4f} ms, bound {r2b['bound_ms']:.5f} ms")
     big = (data.rows, N_HOSTS * data.nb, "torch.float64")
-    rb = compare_k1(big, args.seed + 1, dev, n_series=N_HOSTS, grouped=True)
+    rb = compare_k1(big, args.seed + 1, dev, n_series=N_HOSTS, grouped=True,
+                    call=False)
     log(f"# K1 at {big} (whole table, double_groupby layout; not on the "
-        f"main path): {rb['ms']:.4f} ms (plain {rb['plain_ms']:.4f} ms, "
-        f"bound {rb['bound_ms']:.5f} ms)")
+        f"main path): ms {rb['ms']:.4f}, kernel_ms {rb['kernel_ms']:.4f} "
+        f"(plain {rb['plain_ms']:.4f} ms, bound {rb['bound_ms']:.5f} ms, "
+        f"{100 * rb['bound_ms'] / rb['kernel_ms']:.1f} % of it by "
+        "kernel_ms)")
+    t = time.perf_counter()
+    k1_threads(k1_shape, args.seed, k1_series)
+    log(f"# K1 from 8 threads at once, 8 inputs at {k1_shape} x 20 calls: "
+        f"all match the plain version, bit-stable "
+        f"({time.perf_counter() - t:.2f}s)")
 
     kernels = [
         {"name": "K1 segment_window", "route": "cuda",
          "source": "cnosdb_tpu_torch/ops/csrc/segment_window.cu",
          "replaces": "cnosdb_tpu/ops/pallas_kernels.py:129",
          "launches": launches["K1"], "max_abs_err": r1["max_abs_err"],
-         "ms": r1["ms"], "plain_ms": r1["plain_ms"],
+         "ms": r1["ms"], "kernel_ms": r1["kernel_ms"],
+         "call_ms": r1["call_ms"], "plain_ms": r1["plain_ms"],
          "bound_ms": r1["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
-        {"name": "K2 xor_scan", "route": "cuda",
+        {"name": "K2 gorilla_decode / xor_scan", "route": "cuda",
          "source": "cnosdb_tpu_torch/ops/csrc/xor_scan.cu",
          "replaces": "cnosdb_tpu/ops/device_decode.py:210",
          "launches": launches["K2"], "max_abs_err": r2["max_abs_err"],
-         "ms": r2["ms"], "plain_ms": r2["plain_ms"],
+         "ms": r2["ms"], "kernel_ms": r2["kernel_ms"],
+         "scan_ms": r2["scan_ms"], "plain_ms": r2["plain_ms"],
          "bound_ms": r2["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
     ]

@@ -3,7 +3,8 @@
 Each `csrc/*.cu` compiles with nvcc for Hopper (sm_90a) into its own
 shared library with a plain C interface, loaded with ctypes. Builds land
 in the package's `_build/` (git-ignored) under a name that carries a hash
-of the source, so an edited kernel never loads a stale library. The first
+of the source, every header in `csrc/` and the nvcc flags, so an edited
+kernel, header or flag never loads a stale library. The first
 `library()` call builds every missing library at once, one nvcc process
 per source, all started together.
 
@@ -24,21 +25,39 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 # C signature of every exported kernel entry point: (argtypes, restype)
 _SIGNATURES = {
     "segment_window": {
-        "segment_window_f64": ([_P] * 5 + [_I64, _I64, _P, _P, _I64]
-                               + [_P] * 9, ctypes.c_int),
-        "segment_window_i64": ([_P] * 5 + [_I64, _I64, _P, _P, _I64]
-                               + [_P] * 9, ctypes.c_int),
+        "segment_window_f64": ([_P] * 16 + [_I64] * 3 + [ctypes.c_int, _P],
+                               ctypes.c_int),
+        "segment_window_i64": ([_P] * 16 + [_I64] * 3 + [ctypes.c_int, _P],
+                               ctypes.c_int),
+        "segment_window_call_f64": ([_P, _P, _I64, _P, _I64, _I64, _P, _P]
+                                    + [_I64] * 3 + [_P, _P], ctypes.c_int),
+        "segment_window_call_i64": ([_P, _P, _I64, _P, _I64, _I64, _P, _P]
+                                    + [_I64] * 3 + [_P, _P], ctypes.c_int),
+        "segment_window_bounds": ([_P, _I64, _I64, _I64, _P, _P], _I64),
+        "segment_window_pack": ([_P] * 5 + [_I64, _P, _P, _I64, _I64],
+                                None),
     },
     "xor_scan": {
-        "xor_scan_u64": ([_P, _P, _I64, _I64, _P], ctypes.c_int),
+        "xor_scan_state_words": ([_I64, _I64], _I64),
+        "xor_scan_u64": ([_P, _P, _P, _I64, _I64, _P], ctypes.c_int),
+        "gorilla_decode_u8": ([_P, _P, _P, _I64, _I64, _P], ctypes.c_int),
     },
 }
+
+# entry points that only enqueue work on a stream or do microseconds of
+# host work: they keep the Python GIL (ctypes.PyDLL), since a thread that
+# drops it may queue behind every other thread before it runs again
+_HOLD_GIL = {"segment_window_call_f64", "segment_window_call_i64",
+             "segment_window_bounds", "segment_window_pack",
+             "xor_scan_state_words", "xor_scan_u64", "gorilla_decode_u8"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -62,9 +81,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    """Where csrc/<name>.cu builds to: the name carries a hash of the
+    source, every csrc/*.cuh header and the nvcc flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        h.update(f.encode())
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def build_all() -> dict[str, float]:
@@ -85,9 +110,7 @@ def _build_missing() -> dict[str, float]:
             continue
         nvcc = nvcc or _nvcc()
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", tmp, os.path.join(CSRC, name + ".cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -120,10 +143,12 @@ def library(name: str) -> ctypes.CDLL:
         if not os.path.exists(_lib_path(name)):
             _build_missing()
         lib = ctypes.CDLL(_lib_path(name))
+        held = ctypes.PyDLL(_lib_path(name))
         for fn, (argtypes, restype) in _SIGNATURES[name].items():
-            f = getattr(lib, fn)
+            f = getattr(held if fn in _HOLD_GIL else lib, fn)
             f.argtypes = argtypes
             f.restype = restype
+            setattr(lib, fn, f)
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
@@ -139,7 +164,10 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def current_stream(device) -> int:
     """PyTorch's current stream on `device`, as the pointer-sized int the
-    C entry points take."""
+    C entry points take (the raw lookup: torch.cuda.current_stream builds
+    a Stream object, which costs more than a small launch)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -7,7 +7,7 @@ per-value codec transforms run there as batched programs:
 
   delta / delta_ts   widen -> unzigzag -> cumsum   (i64, u64 bit-rides)
   delta const-stride first + stride * iota
-  gorilla f64        byte-plane assembly -> prefix-XOR scan (K2, a
+  gorilla f64        byte-plane assembly + prefix-XOR scan (K2, one
                      hand-written CUDA kernel, csrc/xor_scan.cu)
   bitpack bool       bit-expansion from packed u8
   string dict pages  narrow code widening (codes on the device; the
@@ -72,7 +72,8 @@ def disabled_reason() -> str | None:
 _LOCK = threading.Lock()
 _engagements = 0
 _xor_engagements = 0
-xor_launches = 0     # CUDA launches of K2 (the plain version is not counted)
+xor_launches = 0     # CUDA launches of K2, both entry points (the plain
+                     # versions are not counted)
 xor_launch_shapes: dict[tuple, int] = {}   # (rows, row length) → launches
 _outcomes: dict[tuple[str, str], int] = {}
 
@@ -115,7 +116,7 @@ def _pow2(n: int, minimum: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K2: prefix-XOR scan along rows
+# K2: prefix-XOR scan along rows, and the whole Gorilla decode around it
 # ---------------------------------------------------------------------------
 def xor_scan_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K2: inclusive prefix-XOR along each row
@@ -130,27 +131,71 @@ def xor_scan_plain(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def gorilla_decode_plain(planes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2's Gorilla decode: [B, 8, L] u8 byte
+    planes -> [B, L] int64 f64 bit patterns (assemble, then scan)."""
+    return xor_scan_plain(_gorilla_words(planes))
+
+
 def xor_scan(x: torch.Tensor) -> torch.Tensor:
     """K2: inclusive prefix-XOR along each row of a contiguous [B, L]
     int64 matrix. A CPU tensor runs the plain version; a CUDA tensor
     launches the kernel."""
-    global xor_launches
     if x.dtype != torch.int64 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("K2 takes a contiguous [B, L] int64 matrix")
     if x.device.type == "cpu":
         return xor_scan_plain(x)
+    return _k2_launch("xor_scan_u64", x, tuple(x.shape))
+
+
+def gorilla_decode(planes: torch.Tensor) -> torch.Tensor:
+    """K2 as the whole Gorilla f64 decode: [B, 8, L] u8 byte planes
+    (plane k = byte k of each u64, little endian) -> [B, L] int64 holding
+    the f64 bits, in one kernel. A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel."""
+    if planes.dtype != torch.uint8 or planes.dim() != 3 \
+            or planes.shape[1] != 8 or not planes.is_contiguous():
+        raise ValueError("K2 decode takes contiguous [B, 8, L] uint8 planes")
+    if planes.device.type == "cpu":
+        return gorilla_decode_plain(planes)
+    b, _, width = planes.shape
+    return _k2_launch("gorilla_decode_u8", planes, (b, width))
+
+
+def k2_state(shape: tuple, device) -> torch.Tensor:
+    """The ticket/status scratch one K2 launch over [B, L] needs (the
+    entry point zeroes it on its stream before the kernel runs)."""
+    from . import cuda_build
+
+    lib = cuda_build.library("xor_scan")
+    return torch.empty(lib.xor_scan_state_words(*shape), dtype=torch.int64,
+                       device=device)
+
+
+def _k2_launch(entry: str, x: torch.Tensor, shape: tuple, out=None,
+               state=None) -> torch.Tensor:
+    """Launch one K2 entry point over `x` into a [B, L] int64 output.
+    Without `out` and `state` (k2_state) both are fresh, so the scratch
+    is per call; a caller that passes both keeps them for its own
+    launches."""
+    global xor_launches
     if x.device.type != "cuda":
         raise ValueError(f"K2 runs on cuda or cpu, not {x.device}")
     from . import cuda_build
 
     lib = cuda_build.library("xor_scan")
-    out = torch.empty_like(x)
-    rc = lib.xor_scan_u64(x.data_ptr(), out.data_ptr(), x.shape[0],
-                          x.shape[1], cuda_build.current_stream(x.device))
-    cuda_build.check(lib, rc, "xor_scan (K2)")
+    if out is None or state is None:
+        # one allocation: the output, then the scratch behind it
+        words = shape[0] * shape[1]
+        buf = torch.empty(words + lib.xor_scan_state_words(*shape),
+                          dtype=torch.int64, device=x.device)
+        out, state = buf[:words].view(shape), buf[words:]
+    rc = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), state.data_ptr(),
+                             shape[0], shape[1],
+                             cuda_build.current_stream(x.device))
+    cuda_build.check(lib, rc, f"{entry} (K2)")
     with _LOCK:
         xor_launches += 1
-        shape = tuple(x.shape)
         xor_launch_shapes[shape] = xor_launch_shapes.get(shape, 0) + 1
     return out
 
@@ -311,8 +356,7 @@ class DeviceDecodeLane:
                 n = j.plan["n"]
                 planes[bi, :, :n] = np.frombuffer(
                     j.plan["raw"], dtype=np.uint8).reshape(8, n)
-            words = _gorilla_words(self._put(planes))
-            out = xor_scan(words).view(torch.float64)
+            out = gorilla_decode(self._put(planes)).view(torch.float64)
             with _LOCK:
                 _xor_engagements += 1
             return out

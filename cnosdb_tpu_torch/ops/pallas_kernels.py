@@ -7,16 +7,30 @@ time-ordered, so the `group × n_buckets + bucket` segment ids of each
 256-row tile span a narrow contiguous window. Here the same layout feeds
 a hand-written CUDA kernel (csrc/segment_window.cu) that reduces each
 tile over only its actual span and folds the tile partials into the final
-[num_segments] count/sum/min/max in a fixed order — no dense window, no
-float atomics.
+[num_segments] count/sum/min/max in a fixed order, in one launch — no
+dense window, no float atomics.
 
 `window_layout` is the host half: the per-tile window bases (what
 `applicable` returned in the JAX package, None when a tile's span
 disqualifies the layout), each tile's partial-slot
-offset, and the slot order that folds every segment's partials in tile
-order. `window_partials` runs the kernel on a CUDA tensor and its plain
+offset, and each partial slot's place in (segment, tile) order, which
+lays every segment's partials out contiguously in tile order for the
+fold. `window_partials` runs the kernel on a CUDA tensor and its plain
 PyTorch version (`window_partials_plain`, the same two passes as scatter
 reductions) on a CPU tensor.
+
+Staging: one call packs everything the kernel reads that is not already
+on the card (rows, layout, zeroed arrival counters) into one page-locked
+buffer (`stage_plan` gives the byte offsets) and makes ONE host-to-device
+copy; `segment_partials_pallas` then makes ONE device-to-host copy of the
+packed count/sum/min/max and synchronizes once. The executor calls it
+from up to eight threads at once on one stream, each query on a fresh
+thread pool, so the pinned buffers live in staging slots that a call
+takes for itself and gives back (a free list, not thread-local storage),
+and a slot's staging buffer is refilled only after the copy that read it
+has finished (an event). On a CPU scan device the same packing
+runs into a numpy buffer and the plain version reads its inputs back out
+of it.
 
 Routing (kernels.aggregate_column_host): `enabled()` reads
 CNOSDB_TPU_PALLAS — "1" forces the route on (the plain version on a CPU
@@ -27,6 +41,8 @@ counted; a kernel that cannot build or launch raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 import threading
 from dataclasses import dataclass
@@ -97,7 +113,8 @@ class WindowLayout:
 
     bases: np.ndarray      # [tiles] i32: the tile's lowest segment id
     slot_off: np.ndarray   # [tiles + 1] i64: first partial slot of a tile
-    order: np.ndarray      # [slots] i32: partial slots by (segment, tile)
+    fold_pos: np.ndarray   # [slots] i32: a slot's place in (segment,
+                           # tile) order
     seg_start: np.ndarray  # [num_segments + 1] i64: a segment's run in order
 
     @property
@@ -106,9 +123,9 @@ class WindowLayout:
 
 
 def _tile_bounds(seg_ids: np.ndarray):
-    pad = (-len(seg_ids)) % R_TILE
-    s = np.pad(seg_ids, (0, pad), mode="edge").reshape(-1, R_TILE)
-    return s.min(axis=1).astype(np.int64), s.max(axis=1).astype(np.int64)
+    starts = np.arange(0, len(seg_ids), R_TILE)
+    return (np.minimum.reduceat(seg_ids, starts).astype(np.int64),
+            np.maximum.reduceat(seg_ids, starts).astype(np.int64))
 
 
 def window_layout(seg_ids: np.ndarray, num_segments: int
@@ -129,14 +146,15 @@ def window_layout(seg_ids: np.ndarray, num_segments: int
     slot_off = np.zeros(len(spans) + 1, dtype=np.int64)
     np.cumsum(spans, out=slot_off[1:])
     total = int(slot_off[-1])
-    gid = (np.repeat(lo, spans)
-           + np.arange(total, dtype=np.int64)
-           - np.repeat(slot_off[:-1], spans))
+    gid = np.arange(total, dtype=np.int64) + np.repeat(lo - slot_off[:-1],
+                                                       spans)
     # stable: a segment's partials keep tile order, so the fold is fixed
-    order = np.argsort(gid, kind="stable").astype(np.int32)
+    order = np.argsort(gid, kind="stable")
+    fold_pos = np.empty(total, dtype=np.int32)
+    fold_pos[order] = np.arange(total, dtype=np.int32)
     seg_start = np.zeros(num_segments + 1, dtype=np.int64)
     np.cumsum(np.bincount(gid, minlength=num_segments), out=seg_start[1:])
-    return WindowLayout(lo.astype(np.int32), slot_off, order, seg_start)
+    return WindowLayout(lo.astype(np.int32), slot_off, fold_pos, seg_start)
 
 
 def _identity(dt: torch.dtype, mode: str):
@@ -178,7 +196,9 @@ def window_partials_plain(values, valid, seg_ids, layout: WindowLayout,
                                                      device=dev)))
     p_min = _extreme(masked("amin"), slot, slots, "amin")
     p_max = _extreme(masked("amax"), slot, slots, "amax")
-    order = torch.from_numpy(layout.order).to(dev).to(torch.int64)
+    order = torch.empty(slots, dtype=torch.int64, device=dev)
+    order[torch.from_numpy(layout.fold_pos).to(dev).to(torch.int64)] = \
+        torch.arange(slots, device=dev)
     seg_of = torch.repeat_interleave(
         torch.arange(num_segments, device=dev),
         torch.from_numpy(np.diff(layout.seg_start)).to(dev))
@@ -206,11 +226,116 @@ def _check_args(values, valid, seg_ids):
             raise ValueError("K1 inputs must share one device")
 
 
+@dataclass
+class StagePlan:
+    """Byte layout of one K1 call's device buffer: the staged inputs
+    first (`in_bytes`, what the one host-to-device copy carries), then
+    the tile partials (device only), then the results [out_lo, out_hi)
+    (what the one device-to-host copy carries). Each region is 16-byte
+    aligned: name → (offset, element count, numpy dtype)."""
+
+    n_rows: int
+    regions: dict
+    in_bytes: int
+    out_lo: int
+    out_hi: int
+
+    @property
+    def total(self) -> int:
+        return self.out_hi
+
+    @functools.cached_property
+    def offsets(self):
+        """The kernel's 16 pointer regions' byte offsets, in its argument
+        order, as the int64 array the one-call C entry takes."""
+        return (ctypes.c_int64 * len(_KERNEL_REGIONS))(
+            *(self.regions.get(k, (0,))[0] for k in _KERNEL_REGIONS))
+
+
+_ALIGN = 16
+_OUTS = ("count", "sum", "min", "max")
+_KERNEL_REGIONS = ("values", "valid", "seg_ids", "bases", "slot_off",
+                   "fold_pos", "seg_start", "arrivals", "p_cnt", "p_sum",
+                   "p_min", "p_max", *_OUTS)
+
+
+def stage_plan(n: int, layout: WindowLayout, num_segments: int,
+               dtype: np.dtype, rows: bool) -> StagePlan:
+    """Where each array of one K1 call lives in its buffers; `rows`
+    stages values, segment ids and valid flags too (else they are device
+    tensors already)."""
+    return _plan(n, len(layout.bases), layout.n_slots, num_segments,
+                 np.dtype(dtype), rows)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(n: int, tiles: int, slots: int, ns: int, dt: np.dtype,
+          rows: bool) -> StagePlan:
+    i32, i64, i8 = np.dtype(np.int32), np.dtype(np.int64), np.dtype(np.int8)
+    parts = ([("values", n, dt), ("seg_ids", n, i32), ("valid", n, i8)]
+             if rows else [])
+    parts += [("bases", tiles, i32), ("slot_off", tiles + 1, i64),
+              ("fold_pos", slots, i32), ("seg_start", ns + 1, i64),
+              ("arrivals", ns, i32)]
+    n_in = len(parts)
+    parts += [("p_cnt", slots, i32), ("p_sum", slots, dt),
+              ("p_min", slots, dt), ("p_max", slots, dt)]
+    n_scratch = len(parts)
+    parts += [("count", ns, i32), ("sum", ns, dt), ("min", ns, dt),
+              ("max", ns, dt)]
+    regions, off, marks = {}, 0, []
+    for i, (name, count, d) in enumerate(parts):
+        if i in (n_in, n_scratch):
+            marks.append(off)
+        regions[name] = (off, count, d)
+        off += -(-count * d.itemsize // _ALIGN) * _ALIGN
+    return StagePlan(n, regions, in_bytes=marks[0], out_lo=marks[1],
+                     out_hi=off)
+
+
+def region(buf, plan: StagePlan, name: str):
+    """The `name` array inside a staging or device buffer (a numpy
+    uint8 array or a torch uint8 tensor), as a view of its dtype."""
+    off, count, d = plan.regions[name]
+    raw = buf[off:off + count * d.itemsize]
+    if isinstance(raw, np.ndarray):
+        return raw.view(d)
+    return raw.view(_TORCH_OF[d.char])
+
+
+_TORCH_OF = {"i": torch.int32, "l": torch.int64, "q": torch.int64,
+             "b": torch.int8, "d": torch.float64}
+
+
+def pack(buf: np.ndarray, plan: StagePlan, layout: WindowLayout,
+         rows: tuple | None = None) -> None:
+    """Fill the input regions of a uint8 staging buffer: the rows
+    (values, valid, seg_ids) where the plan stages them, the layout, and
+    zeroed arrival counters."""
+    if rows is not None:
+        values, valid, seg_ids = rows
+        np.copyto(region(buf, plan, "values"), values)
+        np.copyto(region(buf, plan, "seg_ids"), seg_ids, casting="same_kind")
+        np.copyto(region(buf, plan, "valid"), valid, casting="unsafe")
+    np.copyto(region(buf, plan, "bases"), layout.bases)
+    np.copyto(region(buf, plan, "slot_off"), layout.slot_off)
+    np.copyto(region(buf, plan, "fold_pos"), layout.fold_pos)
+    np.copyto(region(buf, plan, "seg_start"), layout.seg_start)
+    region(buf, plan, "arrivals")[:] = 0
+
+
+def staged_layout(buf, plan: StagePlan) -> WindowLayout:
+    """The layout as it sits in a packed numpy buffer (views)."""
+    return WindowLayout(*(region(buf, plan, k) for k in
+                          ("bases", "slot_off", "fold_pos", "seg_start")))
+
+
 def window_partials(values, valid, seg_ids, layout: WindowLayout,
                     num_segments: int) -> dict:
     """K1: final [num_segments] count (i32) / sum / min / max of the valid
     rows. values [N] f64 or i64, valid [N] int8, seg_ids [N] i32. A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel."""
+    tensor runs the plain version; a CUDA tensor launches the kernel,
+    staging the layout with one host-to-device copy."""
     _check_args(values, valid, seg_ids)
     if len(layout.bases) != -(-values.shape[0] // R_TILE) \
             or len(layout.seg_start) != num_segments + 1:
@@ -220,45 +345,180 @@ def window_partials(values, valid, seg_ids, layout: WindowLayout,
                                      num_segments)
     if values.device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu, not {values.device}")
-    return _launch(values, valid, seg_ids, layout, num_segments)
+    return _on_card_rows(values, valid, seg_ids, layout, num_segments)[1]
 
 
-def _launch(values, valid, seg_ids, layout, num_segments):
+def _on_card_rows(values, valid, seg_ids, layout: WindowLayout,
+                  num_segments: int) -> tuple:
+    """K1 over rows already on the card: one C call stages the layout
+    (one copy) and launches. → (device buffer, results as its views)."""
+    plan = stage_plan(values.shape[0], layout, num_segments,
+                      _NP_OF[values.dtype], rows=False)
+    rows = (ctypes.c_void_p * 3)(values.data_ptr(), valid.data_ptr(),
+                                 seg_ids.data_ptr())
+    return _run_staged(values.device, plan, values.dtype == torch.float64,
+                       lambda stage: pack(stage, plan, layout), rows,
+                       fetch=False)
+
+
+def prepare(values, valid, seg_ids, layout: WindowLayout,
+            num_segments: int):
+    """Run K1 once over rows already on the card → a function that
+    launches the kernel alone again over the same staged buffers and
+    returns the results (views of its device buffer). The kernel leaves
+    its arrival counters at zero, so it may be called again."""
+    _check_args(values, valid, seg_ids)
+    buf, out = _on_card_rows(values, valid, seg_ids, layout, num_segments)
+    plan = stage_plan(values.shape[0], layout, num_segments,
+                      _NP_OF[values.dtype], rows=False)
+    args = _bind(buf, plan, values.data_ptr(), valid.data_ptr(),
+                 seg_ids.data_ptr())
+
+    def launch() -> dict:
+        _launch(values.device, values.dtype, args)
+        return out
+
+    return launch
+
+
+_NP_OF = {torch.float64: np.float64, torch.int64: np.int64}
+
+
+class _Slot:
+    """One call's staging set: a page-locked input buffer, a page-locked
+    result buffer, a device buffer and an event recorded behind the last
+    copy that read the input buffer. A call owns its slot alone; slots
+    outlive the executor's short-lived threads, so their pinned memory is
+    allocated once, not once per thread."""
+
+    __slots__ = ("stage", "stage_np", "results", "results_np", "scratch",
+                 "done", "pending")
+
+    def __init__(self):
+        self.stage = self.results = self.scratch = None
+        self.done = torch.cuda.Event()
+        self.pending = False   # a copy out of `stage` may still run
+
+    @staticmethod
+    def _grow(buf, nbytes: int, **kw):
+        if buf is not None and buf.numel() >= nbytes:
+            return buf
+        size = 1 << max(16, (max(nbytes, 1) - 1).bit_length())
+        return torch.empty(size, dtype=torch.uint8, **kw)
+
+    def staging(self, nbytes: int):
+        """The input buffer (numpy view), ≥ nbytes, once the last copy
+        out of it has finished."""
+        if self.pending:
+            self.done.synchronize()
+            self.pending = False
+        grown = self._grow(self.stage, nbytes, pin_memory=True)
+        if grown is not self.stage:
+            self.stage, self.stage_np = grown, grown.numpy()
+        return self.stage_np
+
+    def result_buffer(self, nbytes: int):
+        grown = self._grow(self.results, nbytes, pin_memory=True)
+        if grown is not self.results:
+            self.results, self.results_np = grown, grown.numpy()
+        return self.results_np
+
+    def device_buffer(self, nbytes: int, dev) -> torch.Tensor:
+        if self.scratch is not None and self.scratch.device != dev:
+            self.scratch = None
+        self.scratch = self._grow(self.scratch, nbytes, device=dev)
+        return self.scratch
+
+
+_free_slots: list[_Slot] = []
+
+
+def _take_slot() -> _Slot:
+    with _lock:
+        return _free_slots.pop() if _free_slots else _Slot()
+
+
+def _give_slot(slot: _Slot) -> None:
+    with _lock:
+        _free_slots.append(slot)
+
+
+def _run_staged(dev, plan: StagePlan, f64: bool, fill, rows, fetch: bool):
+    """One K1 call through a staging slot: `fill` packs the slot's
+    pinned input buffer, then one C call enqueues the host-to-device copy,
+    the launch and, when `fetch`, the device-to-host copy of the results
+    into the slot's pinned result buffer, and records the slot's event.
+    `rows` are the rows' device addresses, or None when they are staged.
+    → the results as numpy arrays after one wait (fetch), else (device
+    buffer, results as its views) with no wait: the slot's next user
+    waits before it refills the input buffer."""
     global launches
     from . import cuda_build
 
-    dev = values.device
     lib = cuda_build.library("segment_window")
-    fn = (lib.segment_window_f64 if values.dtype == torch.float64
+    fn = lib.segment_window_call_f64 if f64 else lib.segment_window_call_i64
+    n_out = plan.out_hi - plan.out_lo
+    slot = _take_slot()
+    try:
+        fill(slot.staging(plan.in_bytes))
+        if fetch:
+            host_np = slot.result_buffer(n_out)
+            buf = slot.device_buffer(plan.total, dev)
+        else:
+            buf = torch.empty(plan.total, dtype=torch.uint8, device=dev)
+        if not slot.done.cuda_event:
+            slot.done.record()   # gives the event its handle
+        rc = fn(slot.stage.data_ptr(), buf.data_ptr(), plan.in_bytes,
+                slot.results.data_ptr() if fetch else None, plan.out_lo,
+                n_out if fetch else 0, plan.offsets, rows, plan.n_rows,
+                plan.regions["bases"][1], plan.regions["count"][1],
+                slot.done.cuda_event, cuda_build.current_stream(dev))
+        cuda_build.check(lib, rc, "segment_window (K1)")
+        shape = (plan.n_rows, plan.regions["count"][1],
+                 "torch.float64" if f64 else "torch.int64")
+        with _lock:
+            launches += 1
+            launch_shapes[shape] = launch_shapes.get(shape, 0) + 1
+        if not fetch:
+            slot.pending = True
+            return buf, {k: region(buf, plan, k) for k in _OUTS}
+        slot.done.synchronize()
+        out = {}
+        for k in _OUTS:
+            off, count, d = plan.regions[k]
+            lo = off - plan.out_lo
+            out[k] = host_np[lo:lo + count * d.itemsize].view(d).copy()
+        return out
+    finally:
+        _give_slot(slot)
+
+
+def _bind(buf: torch.Tensor, plan: StagePlan, values: int, valid: int,
+          seg_ids: int) -> tuple:
+    """The arguments of one K1 launch over a staged device buffer, but
+    the stream: the rows' device addresses are given, the layout's,
+    scratch's and results' are the buffer's regions."""
+    base = buf.data_ptr()
+    at = [base + plan.regions[k][0] for k in _KERNEL_REGIONS[3:]]
+    vec = values % 16 == 0 and seg_ids % 16 == 0 and valid % 8 == 0
+    return (values, valid, seg_ids, *at, plan.n_rows,
+            plan.regions["bases"][1], plan.regions["count"][1], int(vec))
+
+
+def _launch(dev, dtype: torch.dtype, args: tuple) -> None:
+    """One K1 launch on the current stream (raises on a CUDA error)."""
+    global launches
+    from . import cuda_build
+
+    lib = cuda_build.library("segment_window")
+    fn = (lib.segment_window_f64 if dtype == torch.float64
           else lib.segment_window_i64)
-    n = values.shape[0]
-    tiles = len(layout.bases)
-    bases = torch.from_numpy(layout.bases).to(dev)
-    slot_off = torch.from_numpy(layout.slot_off).to(dev)
-    order = torch.from_numpy(layout.order).to(dev)
-    seg_start = torch.from_numpy(layout.seg_start).to(dev)
-    slots = layout.n_slots
-    p_cnt = torch.empty(slots, dtype=torch.int32, device=dev)
-    p_sum = torch.empty(slots, dtype=values.dtype, device=dev)
-    p_min = torch.empty_like(p_sum)
-    p_max = torch.empty_like(p_sum)
-    out = {"count": torch.empty(num_segments, dtype=torch.int32, device=dev),
-           "sum": torch.empty(num_segments, dtype=values.dtype, device=dev)}
-    out["min"] = torch.empty_like(out["sum"])
-    out["max"] = torch.empty_like(out["sum"])
-    rc = fn(values.data_ptr(), valid.data_ptr(), seg_ids.data_ptr(),
-            bases.data_ptr(), slot_off.data_ptr(), n, tiles,
-            order.data_ptr(), seg_start.data_ptr(), num_segments,
-            p_cnt.data_ptr(), p_sum.data_ptr(), p_min.data_ptr(),
-            p_max.data_ptr(), out["count"].data_ptr(), out["sum"].data_ptr(),
-            out["min"].data_ptr(), out["max"].data_ptr(),
-            cuda_build.current_stream(dev))
+    rc = fn(*args, cuda_build.current_stream(dev))
     cuda_build.check(lib, rc, "segment_window (K1)")
+    shape = (args[16], args[18], str(dtype))
     with _lock:
         launches += 1
-        shape = (n, num_segments, str(values.dtype))
         launch_shapes[shape] = launch_shapes.get(shape, 0) + 1
-    return out
 
 
 _WANT_OF = {"count": "want_count", "sum": "want_sum",
@@ -274,25 +534,98 @@ def segment_partials_pallas(values: np.ndarray, valid: np.ndarray,
     kernels) or a tile's segment span disqualifies the layout. Output
     follows the scatter kernels' conventions: empty segments carry count
     0, sum 0 and dtype-extrema min/max; `wants` (same keys as
-    local_segment_partials) subsets the returned aggregates."""
+    local_segment_partials) subsets the returned aggregates. On a card
+    the call makes one host-to-device copy, one launch and one
+    device-to-host copy, and synchronizes once."""
     if wants and (wants.get("want_first") or wants.get("want_last")):
         _decline("first_last")
         return None
     seg_ids = np.asarray(seg_ids)
-    layout = window_layout(seg_ids, num_segments)
-    if layout is None:
-        _decline("wide_span" if len(seg_ids) else "empty")
-        return None
-    from .kernels import to_device, to_host
+    values = np.asarray(values)
+    valid = np.asarray(valid)
+    if not values.ndim == valid.ndim == seg_ids.ndim == 1 \
+            or not len(values) == len(valid) == len(seg_ids):
+        raise ValueError("K1 takes [N] values, valid and segment ids")
     from .placement import scan_device
 
     dev = scan_device()
-    out = window_partials(
-        to_device(values, dev),
-        to_device(np.asarray(valid).astype(np.int8, copy=False), dev),
-        to_device(seg_ids.astype(np.int32, copy=False), dev),
-        layout, num_segments)
-    host = {k: to_host(v) for k, v in out.items()}
+    if len(seg_ids) and dev.type == "cuda":
+        host = _run_card(dev, values, valid, seg_ids, num_segments)
+    elif dev.type in ("cpu", "cuda"):
+        host = _run_plain(values, valid, seg_ids, num_segments)
+    else:
+        raise ValueError(f"K1 runs on cuda or cpu, not {dev}")
+    if host is None:
+        _decline("wide_span" if len(seg_ids) else "empty")
+        return None
     if wants is not None:
         host = {k: v for k, v in host.items() if wants.get(_WANT_OF[k])}
     return host
+
+
+def _check_values(values: np.ndarray) -> None:
+    if values.dtype not in (np.float64, np.int64):
+        raise TypeError(f"K1 takes float64 or int64 values, not "
+                        f"{values.dtype}")
+
+
+def _run_plain(values, valid, seg_ids, num_segments: int) -> dict | None:
+    """The CPU route: the layout, the same packing into a numpy buffer,
+    the plain version over the inputs read back out of it, its results
+    packed into the buffer's result regions and unpacked from there.
+    None when the layout declines."""
+    layout = window_layout(seg_ids, num_segments)
+    if layout is None:
+        return None
+    _check_values(values)
+    plan = stage_plan(len(values), layout, num_segments, values.dtype,
+                      rows=True)
+    buf = np.zeros(plan.total, dtype=np.uint8)
+    pack(buf, plan, layout, (values, valid, seg_ids))
+    t = torch.from_numpy(buf)
+    out = window_partials_plain(
+        *(region(t, plan, k) for k in ("values", "valid", "seg_ids")),
+        staged_layout(buf, plan), num_segments)
+    for k in _OUTS:
+        region(t, plan, k).copy_(out[k])
+    return {k: region(buf, plan, k).copy() for k in _OUTS}
+
+
+def _run_card(dev, values, valid, seg_ids, num_segments: int
+              ) -> dict | None:
+    """The card route: the library's host half lays the batch out (the
+    same layout as window_layout) and packs it into a staging slot, then
+    one copy each way around one launch. None when the layout
+    declines."""
+    from . import cuda_build
+
+    lib = cuda_build.library("segment_window")
+    n = len(values)
+    seg = seg_ids
+    if seg.dtype != np.int32:
+        if int(seg.min()) < 0 or int(seg.max()) >= num_segments:
+            raise ValueError(f"segment ids outside [0, {num_segments})")
+        seg = seg.astype(np.int32)
+    seg = np.ascontiguousarray(seg)
+    values = np.ascontiguousarray(values)
+    valid = np.ascontiguousarray(valid if valid.itemsize == 1
+                                 else valid.astype(np.int8))
+    tiles = -(-n // R_TILE)
+    bases = np.empty(tiles, dtype=np.int32)
+    slot_off = np.empty(tiles + 1, dtype=np.int64)
+    slots = lib.segment_window_bounds(seg.ctypes.data, n, num_segments,
+                                      W_WIN, bases.ctypes.data,
+                                      slot_off.ctypes.data)
+    if slots == -1:
+        return None
+    if slots < 0:
+        raise ValueError(f"segment ids outside [0, {num_segments})")
+    _check_values(values)
+    plan = _plan(n, tiles, slots, num_segments, values.dtype, True)
+    return _run_staged(
+        dev, plan, values.dtype == np.float64,
+        lambda stage: lib.segment_window_pack(
+            stage.ctypes.data, plan.offsets, values.ctypes.data,
+            valid.ctypes.data, seg.ctypes.data, n, bases.ctypes.data,
+            slot_off.ctypes.data, tiles, num_segments),
+        None, fetch=True)

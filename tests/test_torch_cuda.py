@@ -9,6 +9,10 @@ dependencies are installed:
 (--noconftest: the suite's conftest imports jax for the JAX package's
 tests.)
 """
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -125,3 +129,124 @@ def test_k2_kernel_matches_plain(dev, shape):
     assert torch.equal(got.cpu(), dd.xor_scan_plain(words))
     want = np.bitwise_xor.accumulate(words.numpy().view(np.uint64), axis=1)
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint64), want)
+
+
+@pytest.mark.parametrize("shape,n", [
+    ((1, 128), 128), ((3, 1024), 1000), ((32, 131072), 131072),
+    ((2, 262144), 200_000),
+    ((2, 1000), 1000),        # a length off the 16-byte grid: byte loads
+], ids=str)
+def test_k2_gorilla_decode_matches_plain(dev, shape, n):
+    """The whole decode (plane assembly + scan, one launch) against its
+    plain version and numpy, rows zero past a ragged n; two runs give
+    the same bits."""
+    b, width = shape
+    rng = np.random.default_rng(width + b)
+    planes = rng.integers(0, 256, (b, 8, width), dtype=np.uint8)
+    planes[:, :, n:] = 0
+    before = dd.xor_launches
+    got = dd.gorilla_decode(torch.from_numpy(planes).to(dev))
+    again = dd.gorilla_decode(torch.from_numpy(planes).to(dev))
+    torch.cuda.synchronize()
+    assert dd.xor_launches == before + 2
+    assert torch.equal(got, again), "not bit-stable"
+    assert torch.equal(got.cpu(),
+                       dd.gorilla_decode_plain(torch.from_numpy(planes)))
+    words = np.zeros((b, width), dtype=np.uint64)
+    for k in range(8):
+        words |= planes[:, k].astype(np.uint64) << np.uint64(8 * k)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint64),
+                                  np.bitwise_xor.accumulate(words, axis=1))
+
+
+def test_k2_gorilla_decode_unaligned_planes(dev):
+    """Planes that start off a 16-byte boundary take the byte loads."""
+    b, width = 3, 4096
+    rng = np.random.default_rng(5)
+    raw = torch.from_numpy(rng.integers(0, 256, b * 8 * width + 1,
+                                        dtype=np.uint8)).to(dev)
+    planes = raw[1:].view(b, 8, width)
+    assert planes.data_ptr() % 16 != 0 and planes.is_contiguous()
+    got = dd.gorilla_decode(planes)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), dd.gorilla_decode_plain(planes.cpu()))
+
+
+def test_k1_host_wrapper_from_eight_threads(dev, monkeypatch):
+    """Eight threads call the one-copy wrapper at once on one stream, on
+    eight different inputs at the warm path's shape (4,320 rows, 12
+    segments), 20 times each: every result matches the plain version and
+    repeats bit for bit."""
+    monkeypatch.delenv("CNOSDB_TORCH_PLACEMENT", raising=False)
+    wants = {"want_count": True, "want_sum": True, "want_min": True,
+             "want_max": True}
+    cases = [_layout_case(100 + i, 4320, 12, 1,
+                          "float64" if i % 2 == 0 else "int64", i % 4 == 0,
+                          0.1) for i in range(8)]
+    barrier = threading.Barrier(len(cases))
+
+    def work(i):
+        vals, valid, seg, ns = cases[i]
+        barrier.wait()
+        return [pk.segment_partials_pallas(vals, valid, seg, ns,
+                                           wants=dict(wants))
+                for _ in range(20)]
+
+    before = pk.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)   # switch threads often: races show up
+    try:
+        with ThreadPoolExecutor(max_workers=len(cases)) as pool:
+            results = list(pool.map(work, range(len(cases))))
+    finally:
+        sys.setswitchinterval(interval)
+    assert pk.launches == before + 20 * len(cases)
+    for (vals, valid, seg, ns), runs in zip(cases, results):
+        plain = pk.window_partials_plain(
+            torch.from_numpy(vals), torch.from_numpy(valid.astype(np.int8)),
+            torch.from_numpy(seg), pk.window_layout(seg, ns), ns)
+        for got in runs:
+            for k in plain:
+                if k == "sum" and vals.dtype == np.float64:
+                    np.testing.assert_allclose(got[k], plain[k].numpy(),
+                                               rtol=1e-12)
+                else:
+                    np.testing.assert_array_equal(
+                        got[k].view(np.int64) if got[k].dtype == np.float64
+                        else got[k],
+                        _bits(plain[k]).numpy(), err_msg=k)
+                np.testing.assert_array_equal(
+                    got[k].view(np.uint8), runs[0][k].view(np.uint8),
+                    err_msg=f"{k} not bit-stable")
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[3]}")
+def test_k1_host_layout_matches_window_layout(dev, case):
+    """The library's host half (tile bounds, then the packed staging
+    regions: rows, layout, fold places, seg_start, zeroed counters) is
+    byte for byte what window_layout and pack give."""
+    from cnosdb_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library("segment_window")
+    vals, valid, seg, ns = _layout_case(11, *case)
+    vals = vals.astype(np.float64)
+    layout = pk.window_layout(seg, ns)
+    n = len(seg)
+    tiles = -(-n // pk.R_TILE)
+    bases = np.empty(tiles, dtype=np.int32)
+    slot_off = np.empty(tiles + 1, dtype=np.int64)
+    slots = lib.segment_window_bounds(seg.ctypes.data, n, ns, pk.W_WIN,
+                                      bases.ctypes.data, slot_off.ctypes.data)
+    assert slots == layout.n_slots
+    plan = pk.stage_plan(n, layout, ns, vals.dtype, rows=True)
+    want = np.zeros(plan.in_bytes, dtype=np.uint8)
+    pk.pack(want, plan, layout, (vals, valid, seg))
+    got = np.full(plan.in_bytes, 0xAB, dtype=np.uint8)
+    lib.segment_window_pack(got.ctypes.data, plan.offsets, vals.ctypes.data,
+                            valid.ctypes.data, seg.ctypes.data, n,
+                            bases.ctypes.data, slot_off.ctypes.data, tiles,
+                            ns)
+    for k in ("values", "valid", "seg_ids", "bases", "slot_off", "fold_pos",
+              "seg_start", "arrivals"):
+        np.testing.assert_array_equal(pk.region(got, plan, k),
+                                      pk.region(want, plan, k), err_msg=k)

@@ -1,9 +1,10 @@
 """The port's device-decode lane against the JAX package and the host
 decoder, bit for bit.
 
-K2 (cnosdb_tpu_torch.ops.device_decode.xor_scan, the Gorilla prefix-XOR
-scan) runs its plain PyTorch version here and is held against the JAX
-package's Pallas scan in interpret mode (CNOSDB_TPU_PALLAS=1). The whole
+K2 (cnosdb_tpu_torch.ops.device_decode: xor_scan, the Gorilla prefix-XOR
+scan, and gorilla_decode, the whole plane-assembly + scan decode) runs
+its plain PyTorch version here and is held against the JAX package's
+Pallas scan in interpret mode (CNOSDB_TPU_PALLAS=1) and its XLA decode. The whole
 lane (X3 programs + K2) must reproduce storage/codecs.decode and
 cnosdb_tpu's DeviceDecodeLane exactly over the test_device_decode.py
 cases, and the scan's third lane must give the same batches as the
@@ -163,6 +164,79 @@ def test_k2_plain_matches_pallas_xor_scan(shape):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.bitwise_xor.accumulate(words,
                                                                  axis=1))
+
+
+def _gorilla_planes(rng, n: int, b: int, special: bool = False):
+    """[b, 8, L] u8 byte planes as the lane uploads them (L the pow2
+    length bucket of n, rows zero past n) from real Gorilla pages, and
+    the [b, n] f64 values they encode."""
+    width = tdd._pow2(n, tdd._MIN_LANE)
+    planes = np.zeros((b, 8, width), dtype=np.uint8)
+    vals = np.empty((b, n), dtype=np.float64)
+    for bi in range(b):
+        if special:
+            v = rng.permutation(_SPECIAL)[np.arange(n) % len(_SPECIAL)]
+        else:
+            v = rng.normal(20.0, 5.0, n).round(3)
+        plan, reason = codecs.split_for_device(
+            codecs.encode(v, ValueType.FLOAT, Encoding.GORILLA),
+            ValueType.FLOAT)
+        assert plan is not None and plan["kind"] == "gorilla", reason
+        planes[bi, :, :n] = np.frombuffer(plan["raw"],
+                                          dtype=np.uint8).reshape(8, n)
+        vals[bi] = v
+    return planes, vals
+
+
+_SPECIAL = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 5e-324,
+                     np.finfo(np.float64).max, 1.0, 1.0, 1.0], np.float64)
+
+
+def _jax_gorilla(planes: np.ndarray):
+    """The JAX package's decode of the same planes two ways: its XLA
+    kernel, and its Pallas scan (interpret mode) between the plane
+    assembly and the recombination. → two [B, L] u64 arrays."""
+    import jax.numpy as jnp
+
+    p = jnp.asarray(planes)
+    xla = np.asarray(jdd._gorilla_xla_kernel(p)).view(np.uint64)
+    lo, hi = jdd._gorilla_pre_kernel(p)
+    lo = jdd._pallas_xor_scan(lo, True)
+    hi = jdd._pallas_xor_scan(hi, True)
+    pallas = np.asarray(jdd._gorilla_post_kernel(lo, hi)).view(np.uint64)
+    return xla, pallas
+
+
+@pytest.mark.parametrize("b", [1, 3, 32])
+@pytest.mark.parametrize("n", _LENGTHS)
+def test_gorilla_decode_plain_matches_jax(n, b):
+    """K2's whole-decode entry (its plain version on the CPU) against the
+    JAX package's XLA decode and its Pallas scan, bit for bit, on ragged
+    rows inside the padded length bucket."""
+    planes, vals = _gorilla_planes(np.random.default_rng(n * 7 + b), n, b)
+    got = tdd.gorilla_decode(torch.from_numpy(planes)).numpy().view(np.uint64)
+    xla, pallas = _jax_gorilla(planes)
+    np.testing.assert_array_equal(got, xla)
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got[:, :n], vals.view(np.uint64))
+
+
+@pytest.mark.parametrize("b", [1, 3, 32])
+def test_gorilla_decode_plain_special_values(b):
+    planes, vals = _gorilla_planes(np.random.default_rng(b), 40, b,
+                                   special=True)
+    got = tdd.gorilla_decode(torch.from_numpy(planes)).numpy().view(np.uint64)
+    xla, pallas = _jax_gorilla(planes)
+    np.testing.assert_array_equal(got, xla)
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got[:, :40], vals.view(np.uint64))
+
+
+def test_gorilla_decode_rejects_bad_input():
+    with pytest.raises(ValueError):
+        tdd.gorilla_decode(torch.zeros((2, 7, 128), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        tdd.gorilla_decode(torch.zeros((2, 8, 128), dtype=torch.int64))
 
 
 def test_k2_rejects_bad_input():

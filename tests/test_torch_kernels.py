@@ -116,6 +116,47 @@ def test_k1_plain_matches_pallas_interpret(name):
     _assert_same(got, want, ns)
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_k1_staging_round_trips_and_counts_arrivals(name):
+    """The Python half of K1's one-copy wrapper: every input packs into
+    its own aligned region of one staging buffer and reads back exactly;
+    each segment's arrival target is the number of tiles whose window
+    (the JAX package's `applicable` base up to the tile's top segment)
+    covers it; and the staged call agrees with the Pallas kernel."""
+    values, valid, seg_ids, ns = _case(name)
+    layout = tpk.window_layout(seg_ids, ns)
+    plan = tpk.stage_plan(len(values), layout, ns, values.dtype, rows=True)
+    spans = sorted((off, off + count * d.itemsize)
+                   for off, count, d in plan.regions.values())
+    assert all(lo % 16 == 0 for lo, _ in spans)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert plan.regions["arrivals"][0] < plan.in_bytes \
+        <= plan.regions["p_cnt"][0] < plan.out_lo \
+        == plan.regions["count"][0] < plan.out_hi == plan.total
+    buf = np.full(plan.total, 0xAB, dtype=np.uint8)
+    tpk.pack(buf, plan, layout, (values, valid, seg_ids))
+    np.testing.assert_array_equal(
+        tpk.region(buf, plan, "values").view(np.uint64),
+        values.view(np.uint64))
+    np.testing.assert_array_equal(tpk.region(buf, plan, "valid"),
+                                  valid.astype(np.int8))
+    np.testing.assert_array_equal(tpk.region(buf, plan, "seg_ids"), seg_ids)
+    staged = tpk.staged_layout(buf, plan)
+    for k in ("bases", "slot_off", "fold_pos", "seg_start"):
+        np.testing.assert_array_equal(getattr(staged, k),
+                                      getattr(layout, k), err_msg=k)
+    assert not tpk.region(buf, plan, "arrivals").any()
+    want = np.zeros(ns, dtype=np.int64)
+    for t, base in enumerate(jpk.applicable(seg_ids)):
+        top = int(seg_ids[t * tpk.R_TILE:(t + 1) * tpk.R_TILE].max())
+        want[base:top + 1] += 1
+    # the kernel folds a segment when its arrivals reach this target
+    np.testing.assert_array_equal(np.diff(layout.seg_start), want)
+    got = tpk.segment_partials_pallas(values, valid, seg_ids, ns,
+                                      wants=dict(ALL4))
+    _assert_same(got, _jax_k1(values, valid, seg_ids, ns), ns)
+
+
 @pytest.mark.parametrize("kind", ["int64_extremes", "nan_inf"])
 def test_k1_plain_special_values(kind):
     rng = np.random.default_rng(5)
