@@ -1,6 +1,7 @@
 """Smoke run of cnosdb_tpu_torch on one CUDA card: the TSBS devops grouped
-scan-aggregate served end to end, and both hand-written kernels held
-against their plain PyTorch versions.
+scan-aggregate served end to end, on the legacy per-vnode path and on the
+mesh execution lane, and both hand-written kernels held against their
+plain PyTorch versions.
 
     python3 chip_smoke.py [--seed 123] [--rows 10000000]
 
@@ -11,15 +12,28 @@ Phases, in order:
   3. ingest TSBS devops cpu-only data (100 hosts, one point every 10 s,
      usage_user + usage_system, generated from --seed) through
      Coordinator.write_points, flush and compact;
-  4. the main path: the query list below through QueryExecutor.execute_one,
-     each answer checked against a numpy oracle over the generated arrays
-     (kernel launch counts are zeroed just before and read just after);
-  5. each kernel at the shape the main path gave it, on the card, against
+  4. the main path, pinned to the legacy per-vnode path (CNOSDB_MESH=0) on
+     any number of cards: the query list below through
+     QueryExecutor.execute_one, each answer checked against a numpy oracle
+     over the generated arrays (kernel launch counts are zeroed just
+     before and read just after), then profiled;
+  5. the mesh lane (CNOSDB_MESH=1, CNOSDB_MESH_MIN_ROWS=0,
+     CNOSDB_MESH_MIN_DEVICES=1, CNOSDB_COMPRESSED_DOMAIN=0) on the same
+     table, counts zeroed just before and read just after: width 1 over
+     the card (double_groupby_1 cold, then twice more, double_groupby_all
+     and last_loc twice each), the same queries after the cold one over 4
+     logical shards on the one card, and over every card where there are
+     several. Every answer matches the oracle and the legacy answer of
+     step 4; every query engages the lane and merges through the
+     collective, with no decline and no mesh.* error. Then width 1
+     against the legacy path on warm double_groupby_1, in turns, and
+     profiled;
+  6. each kernel at the shape the main path gave it, on the card, against
      its plain version (twice, for bit-stable output), with its time, the
      plain version's time and its bound;
-  6. assertions: scan device is cuda, the fused program launched, K1 ran on
-     the warm cpu_max_all_8, K2 on the cold scan, no device-decode
-     kernel_error outcome.
+  7. assertions: scan device is cuda, the fused program launched, K1 ran on
+     the warm cpu_max_all_8, K2 on both paths' cold scans, no
+     device-decode kernel_error outcome.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi line, and as its
 last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -29,6 +43,7 @@ phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -409,6 +424,7 @@ def profile_query(ex, session, sql: str) -> None:
     host stage breakdown, the card's busy time against wall time, and the
     kernels that took it."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from cnosdb_tpu_torch.utils import stages
@@ -426,6 +442,10 @@ def profile_query(ex, session, sql: str) -> None:
             if k.endswith("_ms")}
     dev = []
     for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            # a host op (aten::*) may carry the time of the kernels it
+            # launched: count only the device's own events
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -441,6 +461,172 @@ def profile_query(ex, session, sql: str) -> None:
     log(f"#   device busy {busy:.3f} ms of {wall:.3f} ms wall under the "
         f"profiler ({100 * busy / wall:.1f} %); top: "
         + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for ms, k, n in dev[:6]))
+
+
+# ---------------------------------------------------------------- mesh lane
+# bench_suites.run_mesh's settings; the compressed-domain lane is off
+# because it answers last() from page metadata before any aggregate runs,
+# so last_loc would never reach the mesh lane
+MESH_KNOBS = {"CNOSDB_MESH": "1", "CNOSDB_MESH_MIN_ROWS": "0",
+              "CNOSDB_MESH_MIN_DEVICES": "1", "CNOSDB_COMPRESSED_DOMAIN": "0"}
+MESH_DECLINES = ("plan_error", "device_loss", "few_devices", "no_devices")
+# per query: the key columns and the value columns held exactly / within
+# rtol 1e-12 against the legacy answer (f64 means: index_add_ adds f64
+# with atomics on the card, on both paths)
+MESH_COMPARE = {
+    "double_groupby_1": (("t", "hostname"), (), ("m",)),
+    "double_groupby_all": (("t", "hostname"), (), ("mu", "ms")),
+    "last_loc": (("hostname",), ("l",), ()),
+}
+
+
+def check_legacy(rs, ref, keys, exact, close) -> None:
+    """`rs` against the legacy answer `ref`: the same groups, values
+    exact or within rtol 1e-12, matched by key (not by row order)."""
+    a, b = _cols(rs), _cols(ref)
+    ka = list(zip(*[np.asarray(a[k]).tolist() for k in keys]))
+    kb = list(zip(*[np.asarray(b[k]).tolist() for k in keys]))
+    pos = {k: i for i, k in enumerate(kb)}
+    if len(ka) != len(kb) or len(pos) != len(kb) \
+            or any(k not in pos for k in ka):
+        raise AssertionError("mesh groups differ from the legacy groups")
+    order = np.array([pos[k] for k in ka], dtype=np.int64)
+    for col in exact:
+        np.testing.assert_array_equal(np.asarray(a[col]),
+                                      np.asarray(b[col])[order], err_msg=col)
+    for col in close:
+        np.testing.assert_allclose(np.asarray(a[col], dtype=np.float64),
+                                   np.asarray(b[col], dtype=np.float64)
+                                   [order], rtol=1e-12, atol=0, err_msg=col)
+
+
+@contextlib.contextmanager
+def logical_mesh(devices):
+    """Within the block the mesh pool is `devices` (4 × cuda:0: logical
+    shards on one card), or the real pool when None."""
+    from cnosdb_tpu_torch.ops import placement
+
+    saved = placement.mesh_devices
+    if devices is not None:
+        placement.mesh_devices = lambda: list(devices)
+    try:
+        yield
+    finally:
+        placement.mesh_devices = saved
+
+
+def mesh_phase(ex, session, coord, data, legacy, checks) -> dict:
+    """Step 5: the mesh lane over the ingested table. `legacy` holds the
+    pinned path's warm answers and wall times by query name, `checks`
+    the oracle checks. Raises on a wrong answer, a decline or a missing
+    engagement. → {"launches": {...}, "queries": n}."""
+    import torch
+
+    from cnosdb_tpu_torch.ops import device_decode as dd
+    from cnosdb_tpu_torch.ops import pallas_kernels as pk
+    from cnosdb_tpu_torch.parallel import mesh
+    from cnosdb_tpu_torch.utils import stages
+
+    os.environ.update(MESH_KNOBS)
+    cuda0 = torch.device("cuda", 0)
+    widths = [("width 1", "1", None, True),
+              ("4 logical shards on cuda:0", None, [cuda0] * 4, False)]
+    if torch.cuda.device_count() > 1:
+        widths.append((f"{torch.cuda.device_count()} cards", None, None,
+                       False))
+    errors0 = {k: v for k, v in stages.errors_snapshot().items()
+               if k.startswith("mesh.")}
+    pk.launches = 0
+    dd.xor_launches = 0
+    mesh.reset_counters()
+    n_queries = 0
+    k2_cold = 0
+    for label, cap, devices, cold in widths:
+        if cap is None:
+            os.environ.pop("CNOSDB_MESH_DEVICES", None)
+        else:
+            os.environ["CNOSDB_MESH_DEVICES"] = cap
+        plan = [("double_groupby_1", True)] if cold else []
+        plan += [("double_groupby_1", False), ("double_groupby_1", False),
+                 ("double_groupby_all", False), ("double_groupby_all", False),
+                 ("last_loc", False), ("last_loc", False)]
+        seen = set()
+        with logical_mesh(devices):
+            m = mesh.get_mesh()
+            log(f"# mesh {label}: {mesh.mesh_size(m)} shards on "
+                f"{sorted({str(d) for d in m.devices})}")
+            for name, clear in plan:
+                if clear:
+                    with coord._scan_cache_lock:
+                        coord._scan_cache.clear()
+                before = mesh.outcomes_snapshot()
+                k2 = dd.xor_launches
+                qp = stages.QueryProfile()
+                t = time.perf_counter()
+                with stages.profile_scope(qp):
+                    rs = ex.execute_one(SQL[name], session)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                after = mesh.outcomes_snapshot()
+                n_queries += 1
+                for key in (("exec", "engaged"), ("merge", "collective")):
+                    if after.get(key, 0) != before.get(key, 0) + 1:
+                        raise AssertionError(
+                            f"mesh {label} {name}: {key} not booked: {after}")
+                checks[name](rs)
+                keys, exact, close = MESH_COMPARE[name]
+                check_legacy(rs, legacy[name][0], keys, exact, close)
+                if clear:
+                    k2_cold += dd.xor_launches - k2
+                st = {k: round(v, 3) for k, v in qp.snapshot().items()
+                      if k.startswith("mesh.")}
+                state = "cold" if clear else (
+                    "repeat" if name in seen else "first")
+                seen.add(name)
+                log(f"# mesh {label} {name} ({state}):"
+                    f" {ms:.1f} ms, {len(rs.columns[0])} rows, K2 "
+                    f"+{dd.xor_launches - k2}, matches the numpy oracle "
+                    f"and the legacy answer; stages {st}")
+    snap = mesh.outcomes_snapshot()
+    launches = {"K1": pk.launches, "K2": dd.xor_launches}
+    errors = {k: v for k, v in stages.errors_snapshot().items()
+              if k.startswith("mesh.")}
+    log(f"# mesh lane: {n_queries} queries, outcomes {snap}, K1 launches "
+        f"{launches['K1']}, K2 launches {launches['K2']}")
+    if snap.get(("exec", "engaged"), 0) != n_queries \
+            or snap.get(("merge", "collective"), 0) != n_queries:
+        raise AssertionError(f"mesh lane engaged {snap}, want {n_queries}")
+    bad = {k: v for k, v in snap.items() if k[1] in MESH_DECLINES}
+    if bad:
+        raise AssertionError(f"mesh lane declined: {bad}")
+    if errors != errors0:
+        raise AssertionError(f"mesh errors booked: {errors} (was {errors0})")
+    if k2_cold <= 0:
+        raise AssertionError("K2 did not run on the mesh phase's cold scan")
+
+    # width 1 against the legacy path on warm double_groupby_1, in turns
+    os.environ["CNOSDB_MESH_DEVICES"] = "1"
+    walls = {"legacy": [], "mesh": []}
+    for path in ("mesh", "legacy") + ("legacy", "mesh", "mesh", "legacy") * 2:
+        os.environ["CNOSDB_MESH"] = "1" if path == "mesh" else "0"
+        t = time.perf_counter()
+        ex.execute_one(SQL["double_groupby_1"], session)
+        torch.cuda.synchronize()
+        walls[path].append(round((time.perf_counter() - t) * 1e3, 3))
+    log(f"# double_groupby_1 warm, in turns in this process after one "
+        f"warm-up each: mesh width 1 {walls['mesh'][1:]} ms, legacy "
+        f"{walls['legacy'][1:]} ms (pinned phase's warm runs: "
+        f"{legacy['double_groupby_1'][1]} ms)")
+    os.environ["CNOSDB_MESH"] = "1"
+    for name in ("double_groupby_1", "last_loc"):
+        log(f"# profile mesh width 1 {name} (warm):")
+        ex.execute_one(SQL[name], session)   # its own prep, cached
+        profile_query(ex, session, SQL[name])
+    for k in MESH_KNOBS:
+        os.environ.pop(k, None)
+    os.environ["CNOSDB_MESH"] = "0"
+    os.environ.pop("CNOSDB_MESH_DEVICES", None)
+    return {"launches": launches, "queries": n_queries}
 
 
 # ---------------------------------------------------------------- main
@@ -462,6 +648,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     os.environ["CNOSDB_SERVING"] = "0"   # repeats reach the operators
+    # the main path is the legacy per-vnode path on any number of cards;
+    # the mesh phase turns the lane on for its own queries
+    os.environ["CNOSDB_MESH"] = "0"
     from cnosdb_tpu_torch.ops import cuda_build
     from cnosdb_tpu_torch.ops import device_decode as dd
     from cnosdb_tpu_torch.ops import fused
@@ -535,11 +724,21 @@ def main(argv=None) -> int:
             log(f"# query {name}: {ms:.1f} ms, {len(rs.columns[0])} rows, "
                 f"K1 +{pk.launches - k1}, K2 +{dd.xor_launches - k2}, "
                 "matches the numpy oracle")
+            base = name.split(" ")[0]
+            if name.endswith("(warm)") and base in SQL:
+                # the legacy answer the mesh phase is held against
+                legacy.setdefault(base, (rs, []))[1].append(round(ms, 3))
             return pk.launches - k1, dd.xor_launches - k2
 
-        dg1 = lambda rs: check_groupby(rs, data, {"m": data.user})  # noqa
-        dga = lambda rs: check_groupby(  # noqa: E731
-            rs, data, {"mu": data.user, "ms": data.syst})
+        legacy: dict = {}
+        checks = {
+            "double_groupby_1":
+                lambda rs: check_groupby(rs, data, {"m": data.user}),
+            "double_groupby_all":
+                lambda rs: check_groupby(rs, data, {"mu": data.user,
+                                                    "ms": data.syst}),
+            "last_loc": lambda rs: check_last(rs, data)}
+        dg1, dga = checks["double_groupby_1"], checks["double_groupby_all"]
         _k1, k2_cold = run("double_groupby_1 (cold)",
                            SQL["double_groupby_1"], dg1, clear=True)
         run("double_groupby_1 (warm)", SQL["double_groupby_1"], dg1)
@@ -551,14 +750,13 @@ def main(argv=None) -> int:
         run("cpu_max_all_8 (first)", sql8, c8)
         k1_warm, _k2 = run("cpu_max_all_8 (warm)", sql8, c8)
         run("cpu_max_all_8 (warm)", sql8, c8)
-        run("last_loc (warm)", SQL["last_loc"], lambda rs: check_last(rs,
-                                                                      data))
+        run("last_loc (warm)", SQL["last_loc"], checks["last_loc"])
         launches = {"K1": pk.launches, "K2": dd.xor_launches}
         k1_shapes, k2_shapes = dict(pk.launch_shapes), \
             dict(dd.xor_launch_shapes)
         fused_launches = fused.launch_count - fused_before
 
-        # 6 (main-path half). what the run must have gone through
+        # 7 (main-path half). what the run must have gone through
         outcomes = dd.outcomes_snapshot()
         log(f"# main path: fused launches {fused_launches}, K1 launches "
             f"{launches['K1']} {k1_shapes}, K2 launches {launches['K2']} "
@@ -585,12 +783,15 @@ def main(argv=None) -> int:
                 ex.execute_one(sql, s)   # re-warm its own filtered scan
             log(f"# profile {name}:")
             profile_query(ex, s, sql)
+
+        # 5. the mesh lane, its own counts zeroed just before it
+        mesh_run = mesh_phase(ex, s, coord, data, legacy, checks)
     finally:
         if coord is not None:
             coord.close()
         shutil.rmtree(d, ignore_errors=True)
 
-    # 5. each kernel at its main-path shape against its plain version
+    # 6. each kernel at its main-path shape against its plain version
     k1_shape = _most_launched(k1_shapes)
     k2_shape = _most_launched(k2_shapes)
     # the window holds 12 h of each selected host: 4320 rows per series
@@ -632,7 +833,9 @@ def main(argv=None) -> int:
         {"name": "K1 segment_window", "route": "cuda",
          "source": "cnosdb_tpu_torch/ops/csrc/segment_window.cu",
          "replaces": "cnosdb_tpu/ops/pallas_kernels.py:129",
-         "launches": launches["K1"], "max_abs_err": r1["max_abs_err"],
+         "launches": launches["K1"],
+         "mesh_launches": mesh_run["launches"]["K1"],
+         "max_abs_err": r1["max_abs_err"],
          "ms": r1["ms"], "kernel_ms": r1["kernel_ms"],
          "call_ms": r1["call_ms"], "plain_ms": r1["plain_ms"],
          "bound_ms": r1["bound_ms"], "bound_by": "bytes",
@@ -640,7 +843,9 @@ def main(argv=None) -> int:
         {"name": "K2 gorilla_decode / xor_scan", "route": "cuda",
          "source": "cnosdb_tpu_torch/ops/csrc/xor_scan.cu",
          "replaces": "cnosdb_tpu/ops/device_decode.py:210",
-         "launches": launches["K2"], "max_abs_err": r2["max_abs_err"],
+         "launches": launches["K2"],
+         "mesh_launches": mesh_run["launches"]["K2"],
+         "max_abs_err": r2["max_abs_err"],
          "ms": r2["ms"], "kernel_ms": r2["kernel_ms"],
          "scan_ms": r2["scan_ms"], "plain_ms": r2["plain_ms"],
          "bound_ms": r2["bound_ms"], "bound_by": "bytes",

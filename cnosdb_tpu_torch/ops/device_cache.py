@@ -262,6 +262,51 @@ def _put(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
 
 
+class ShardedTensor:
+    """One host array split over the execution mesh: `shards[i]` holds
+    rows [i·r, (i+1)·r) on `mesh.devices[i]` (r = rows / mesh size)."""
+
+    __slots__ = ("shards", "mesh")
+
+    def __init__(self, shards: list, mesh):
+        self.shards = shards
+        self.mesh = mesh
+
+
+def put_sharded(a: np.ndarray, mesh, spec) -> ShardedTensor:
+    """Upload one host array laid out for the execution mesh: rows split
+    over the shard axis per `spec` (a parallel.mesh.PartitionSpec; only
+    P("shard") is supported). Chunk i goes to mesh.devices[i] in one
+    non-blocking copy from pinned memory (a CPU shard shares the host
+    array's memory). The mesh exec lane (ops/mesh_exec.py) stages every
+    operand through here so sharded uploads book the same `upload_bytes`
+    the single-device path does."""
+    from ..parallel.mesh import SHARD_AXIS, mesh_size
+
+    if tuple(spec) != (SHARD_AXIS,):
+        raise ValueError(f"put_sharded splits rows over {SHARD_AXIS!r} "
+                         f"only, not {spec!r}")
+    d = mesh_size(mesh)
+    if len(a) % d:
+        raise ValueError(f"{len(a)} rows do not split over {d} shards")
+    a = np.ascontiguousarray(a)
+    stages.count("upload_bytes", int(a.nbytes))
+    if not a.flags.writeable:   # torch.from_numpy wants a writable buffer
+        a = a.copy()
+    host = torch.from_numpy(a)
+    if any(dev.type != "cpu" for dev in mesh.devices):
+        pinned = host.pin_memory()
+    r = len(a) // d
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        if dev.type == "cpu":
+            shards.append(host[i * r:(i + 1) * r])
+        else:
+            shards.append(pinned[i * r:(i + 1) * r].to(dev,
+                                                       non_blocking=True))
+    return ShardedTensor(shards, mesh)
+
+
 def device_batch(batch) -> DeviceBatch:
     """Get-or-build the device twin of a ScanBatch (attached to it)."""
     db = getattr(batch, "_device_batch", None)

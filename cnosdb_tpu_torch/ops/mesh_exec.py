@@ -551,7 +551,7 @@ def _run_collectives(prep, m) -> dict:
             rids, rsegs, mesh=m, slots=prep["slots"],
             num_segments=prep["seg_pad"], wants=prep["wants"][c],
             run_pad=rpad)
-        outs[c] = {k: np.asarray(v)[:n_seg] for k, v in out.items()}  # lint: disable=host-sync (audited transfer point: one replicated pull per merged column)
+        outs[c] = {k: v[:n_seg].cpu().numpy() for k, v in out.items()}  # lint: disable=host-sync (audited transfer point: one replicated pull per merged column)
     return outs
 
 

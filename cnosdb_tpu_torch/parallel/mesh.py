@@ -1,24 +1,40 @@
-"""Mesh-lane bookkeeping for the port (collectives are not ported yet).
+"""Device mesh management + the mesh-lane accounting plane.
 
-The JAX package builds a 1-D `jax.sharding.Mesh` over the placement
-plane's devices and merges partial aggregates over collectives
-(parallel/distributed_agg). This module keeps only what ops/mesh_exec.py
-needs to decide and book: the `CNOSDB_MESH` switch, the
-`cnosdb_mesh_total{lane,reason}` counters, and a mesh descriptor over the
-CUDA devices (`torch.cuda.device_count()`). On one card the lane declines
-as `few_devices`; with several, building the sharded operands fails in
-`PartitionSpec` and the lane declines as `plan_error`, so every query
-takes the legacy host merge until the NCCL collectives land.
+The port of cnosdb_tpu/parallel/mesh.py. A mesh is an ordered list of
+`torch.device`s along one axis ("shard"): shard i's rows live on
+`mesh.devices[i]`, and the collective merge (parallel/distributed_agg)
+gathers every shard's partials onto `mesh.devices[0]`. Devices may
+repeat, so that n logical shards can share one card (or the CPU) — the
+counterpart of the JAX tests' virtual host devices. The lane is
+single-controller, as in the JAX package: the executor that holds the
+scan batches drives every shard from one process, so there is no
+`torch.distributed` process group.
+
+The process-wide mesh is built once (`get_mesh`) from the placement
+plane's device pool (ops/placement.py `mesh_devices`). `CNOSDB_MESH=0`
+disables the lane entirely — every query takes the byte-identical
+legacy merge path.
+
+Accounting: every mesh-lane engage/decline books here via
+`count_outcome(lane, reason)` and is exported as
+`cnosdb_mesh_total{lane,reason}` by the HTTP /metrics scrape.
 """
 from __future__ import annotations
 
 import os
 import threading
 
+import torch
+
 SHARD_AXIS = "shard"
+# reserved second axis name, as in the JAX package: replicated operands
+# would be placed with P(), which spans every named axis
+REPLICA_AXIS = "replica"
 
 _lock = threading.Lock()
 _counters: dict[tuple[str, str], int] = {}
+_cached_mesh: "Mesh | None" = None
+_cached_key: tuple | None = None
 
 
 def enabled() -> bool:
@@ -39,35 +55,70 @@ def outcomes_snapshot() -> dict[tuple[str, str], int]:
         return dict(sorted(_counters.items()))
 
 
-class Mesh:
-    """The devices of the execution mesh, along the shard axis."""
+def reset_counters() -> None:
+    """Test isolation only."""
+    with _lock:
+        _counters.clear()
 
-    def __init__(self, devices: list):
-        self.devices = list(devices)
+
+class Mesh:
+    """The devices of the execution mesh, one per shard, in shard order."""
+
+    def __init__(self, devices):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
         self.shape = {SHARD_AXIS: len(self.devices)}
 
 
 class PartitionSpec(tuple):
-    """Placeholder for sharded operand layouts: the sharded upload and the
-    collective merge are not ported, so building one refuses."""
+    """Operand layout over the mesh: the axis names of each dimension
+    (None = replicated). `P("shard")` splits rows over the shard axis;
+    `P()` is fully replicated."""
 
-    def __new__(cls, *args):
-        raise NotImplementedError(
-            "mesh collectives are not ported to torch.distributed yet")
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+
+def make_mesh(n_devices: int | None = None, device: str = "cuda") -> Mesh:
+    """A mesh over the first `n_devices` CUDA devices (all of them when
+    None). Raises when there are fewer: a run meant for the card never
+    widens onto the host. `device="cpu"` builds a mesh of `n_devices`
+    logical shards on the CPU — only when the caller asks for it."""
+    if device == "cpu":
+        return Mesh([torch.device("cpu")] * (n_devices or 1))
+    if device != "cuda":
+        raise ValueError(f"device={device!r}: expected cuda or cpu")
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = have if n_devices is None else n_devices
+    if n > have or n < 1:
+        raise ValueError(f"requested {n} CUDA devices, have {have}")
+    return Mesh([torch.device("cuda", i) for i in range(n)])
 
 
 def get_mesh() -> Mesh | None:
-    """The execution mesh over the placement plane's device pool;
-    CNOSDB_MESH_DEVICES caps the width. None when the pool is empty."""
+    """The process-wide execution mesh over the placement plane's device
+    pool. CNOSDB_MESH_DEVICES caps the width (the bench sweep uses it to
+    scale 1→2→4→8 on a fixed pool); None when the pool is empty. The
+    cache is keyed on the cap and the pool, so a changed pool rebuilds."""
+    global _cached_mesh, _cached_key
     from ..ops.placement import mesh_devices
 
-    devs = mesh_devices()
+    want = os.environ.get("CNOSDB_MESH_DEVICES")
+    devs = list(mesh_devices())
+    key = (want, tuple(str(d) for d in devs))
+    with _lock:
+        if _cached_mesh is not None and _cached_key == key:
+            return _cached_mesh
     if not devs:
         return None
-    want = os.environ.get("CNOSDB_MESH_DEVICES")
     if want:
         devs = devs[:max(1, int(want))]
-    return Mesh(devs)
+    mesh = Mesh(devs)
+    with _lock:
+        _cached_mesh = mesh
+        _cached_key = key
+    return mesh
 
 
 def mesh_size(mesh: Mesh) -> int:

@@ -22,7 +22,7 @@ COPIED_FILES = (
     "ops/group_agg.py", "ops/zonemap.py", "ops/strkernels.py",
     "ops/mesh_exec.py", "ops/tpu_exec.py",
 )
-# parallel/ minus the two jax modules (the port keeps its own small ones)
+# parallel/ minus the two jax modules, which the port rewrites in torch
 NOT_COPIED_PARALLEL = {"mesh.py", "distributed_agg.py"}
 
 # every copy: string module names point at the port
@@ -34,7 +34,10 @@ SUBS = {
     "ops/mesh_exec.py": [
         ('scan_device().platform == "cpu"', 'scan_device().type == "cpu"'),
         ("from jax.sharding import PartitionSpec as P",
-         "from ..parallel.mesh import PartitionSpec as P")],
+         "from ..parallel.mesh import PartitionSpec as P"),
+        # the merged partials are tensors on the lead device: one pull each
+        ("np.asarray(v)[:n_seg] for k, v in out.items()",
+         "v[:n_seg].cpu().numpy() for k, v in out.items()")],
     "ops/group_agg.py": [('return scan_device().platform == "tpu"',
                           'return scan_device().type == "cuda"')],
 }

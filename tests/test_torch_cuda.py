@@ -250,3 +250,146 @@ def test_k1_host_layout_matches_window_layout(dev, case):
               "seg_start", "arrivals"):
         np.testing.assert_array_equal(pk.region(got, plan, k),
                                       pk.region(want, plan, k), err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int64"])
+def test_mesh_merge_kernel_on_the_card(dev, dtype):
+    """The mesh lane's merge program over 4 logical shards on the card
+    against the same call over 4 logical shards on the CPU: the gather
+    and the cross-shard fold run on CUDA tensors. Counts, integer sums,
+    min, max, first and last exact; f64 sums within rtol 1e-12 (X1's
+    index_add_ adds f64 with atomics on the card)."""
+    from cnosdb_tpu_torch.ops.device_cache import put_sharded
+    from cnosdb_tpu_torch.parallel.distributed_agg import mesh_merge_kernel
+    from cnosdb_tpu_torch.parallel.mesh import Mesh
+    from cnosdb_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    d, slots, ns, rows = 4, 2, 1024, 1 << 16
+    rng = np.random.default_rng(5)
+    total = d * rows
+    if dtype == "float64":
+        vals = rng.random(total) * 100
+        vals[rng.random(total) < 0.001] = np.nan
+    else:
+        vals = rng.integers(-(2**50), 2**50, total)
+    valid = rng.random(total) > 0.1
+    seg = (rng.integers(0, slots, total) * ns
+           + rng.integers(0, ns - 24, total)).astype(np.int32)
+    rank = rng.permutation(total).astype(np.int32)
+    dummy = np.zeros(d, dtype=np.int32)
+    wants = ("count", "first", "last", "max", "min", "sum")
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        m = Mesh([where] * d)
+        out[where.type] = mesh_merge_kernel(
+            *[put_sharded(a, m, P("shard"))
+              for a in (vals, valid, seg, rank, dummy, dummy)],
+            mesh=m, slots=slots, num_segments=ns, wants=wants)
+    torch.cuda.synchronize()
+    for k, plain in out["cpu"].items():
+        got = out["cuda"][k]
+        assert got.device == dev, k
+        got = got.cpu()
+        if k == "sum" and dtype == "float64":
+            torch.testing.assert_close(got, plain, rtol=1e-12, atol=0,
+                                       equal_nan=True)
+            continue
+        if got.dtype == torch.float64:
+            nan = torch.isnan(plain)
+            assert torch.equal(torch.isnan(got), nan), k
+            got, plain = got[~nan], plain[~nan]
+        assert torch.equal(_bits(got), _bits(plain)), k
+
+
+def test_mesh_merge_kernel_across_cards(dev):
+    """The same merge over one shard per card (peer copies gather the
+    partials onto cuda:0) against the CPU. Skips with fewer than 2 cards."""
+    from cnosdb_tpu_torch.ops.device_cache import put_sharded
+    from cnosdb_tpu_torch.parallel.distributed_agg import mesh_merge_kernel
+    from cnosdb_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from cnosdb_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    d = torch.cuda.device_count()
+    if d < 2:
+        pytest.skip("needs 2 or more CUDA cards")
+    slots, ns, rows = 2, 512, 1 << 15
+    rng = np.random.default_rng(9)
+    total = d * rows
+    vals = rng.integers(-(2**50), 2**50, total)
+    valid = rng.random(total) > 0.1
+    seg = (rng.integers(0, slots, total) * ns
+           + rng.integers(0, ns - 9, total)).astype(np.int32)
+    rank = rng.permutation(total).astype(np.int32)
+    dummy = np.zeros(d, dtype=np.int32)
+    wants = ("count", "first", "last", "max", "min", "sum")
+    out = {}
+    for m in (make_mesh(d), Mesh([torch.device("cpu")] * d)):
+        h = [put_sharded(a, m, P("shard"))
+             for a in (vals, valid, seg, rank, dummy, dummy)]
+        if m.devices[0].type == "cuda":
+            assert [s.device for s in h[0].shards] == m.devices
+        out[m.devices[0].type] = mesh_merge_kernel(
+            *h, mesh=m, slots=slots, num_segments=ns, wants=wants)
+    for k, plain in out["cpu"].items():
+        got = out["cuda"][k]
+        assert got.device == torch.device("cuda", 0), k
+        assert torch.equal(got.cpu(), plain), k
+
+
+@pytest.mark.parametrize("width", ["logical", "cards"])
+def test_mesh_lane_sql_on_the_card(dev, width, tmp_path, monkeypatch):
+    """A grouped aggregate through QueryExecutor with the lane engaged
+    (4 logical shards on cuda:0, or one shard per card) against the
+    legacy path (CNOSDB_MESH=0) on the same table: counts, integer sums,
+    min, max, first and last exact, f64 sums within rtol 1e-12."""
+    from cnosdb_tpu_torch.ops import placement
+    from cnosdb_tpu_torch.parallel import mesh
+    from cnosdb_tpu_torch.parallel.coordinator import Coordinator
+    from cnosdb_tpu_torch.parallel.meta import MetaStore
+    from cnosdb_tpu_torch.sql.executor import QueryExecutor, Session
+    from cnosdb_tpu_torch.storage.engine import TsKv
+
+    if width == "cards" and torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more CUDA cards")
+    monkeypatch.delenv("CNOSDB_TORCH_PLACEMENT", raising=False)
+    for k, v in (("CNOSDB_SERVING", "0"), ("CNOSDB_MESH_MIN_ROWS", "0"),
+                 ("CNOSDB_MESH_MIN_DEVICES", "1"),
+                 ("CNOSDB_COMPRESSED_DOMAIN", "0")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("CNOSDB_MESH_DEVICES", raising=False)
+    if width == "logical":
+        monkeypatch.setattr(placement, "mesh_devices", lambda: [dev] * 4)
+    meta = MetaStore(str(tmp_path / "meta.json"))
+    coord = Coordinator(meta, TsKv(str(tmp_path / "data")))
+    try:
+        ex = QueryExecutor(meta, coord)
+        ex.execute_one("CREATE DATABASE m WITH SHARD 4 REPLICA 1")
+        s = Session(database="m")
+        ex.execute_one("CREATE TABLE t (v DOUBLE, i BIGINT, TAGS(host))", s)
+        rng = np.random.default_rng(3)
+        rows = ", ".join(
+            f"({1_700_000_000_000_000_000 + k * 60_000_000_000}, "
+            f"'h{k % 12}', {float(rng.normal(50, 10))!r}, "
+            f"{int(rng.integers(-1000, 1000))})" for k in range(3000))
+        ex.execute_one(f"INSERT INTO t (time, host, v, i) VALUES {rows}", s)
+        sql = ("SELECT host, date_bin(INTERVAL '1 hour', time) AS b, "
+               "count(v) c, sum(v) sv, sum(i) si, min(v) mn, max(i) mx, "
+               "first(v) f, last(i) l FROM t GROUP BY host, b "
+               "ORDER BY host, b")
+        monkeypatch.setenv("CNOSDB_MESH", "0")
+        legacy = ex.execute_one(sql, s)
+        monkeypatch.setenv("CNOSDB_MESH", "1")
+        mesh.reset_counters()
+        got = ex.execute_one(sql, s)
+        snap = mesh.outcomes_snapshot()
+        assert snap.get(("exec", "engaged")) == 1, snap
+        assert snap.get(("merge", "collective")) == 1, snap
+        assert got.names == legacy.names
+        for name, a, b in zip(got.names, got.columns, legacy.columns):
+            if name == "sv":
+                np.testing.assert_allclose(a.astype(float), b.astype(float),
+                                           rtol=1e-12, atol=0)
+            else:
+                assert a.tolist() == b.tolist(), name
+    finally:
+        coord.close()
