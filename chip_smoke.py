@@ -32,6 +32,17 @@ Phases, in order:
      collective, with no decline and no mesh.* error. Then width 1
      against the legacy path on warm double_groupby_1, in turns, and
      profiled;
+  5b. the invariant-analysis plane: the port's lint engine
+     (cnosdb_tpu_torch.analysis) over cnosdb_tpu_torch/ must pass its
+     gate here, where there is no jax; then the card's own sync reports
+     (torch.cuda.set_sync_debug_mode("warn")) on cold double_groupby_1,
+     warm double_groupby_1 on the legacy path and on the width-1 mesh
+     lane, and warm cpu_max_all_8, each booked by the innermost stack
+     frame under cnosdb_tpu_torch/ and held against what the engine's
+     host-sync and torch-sync report or see suppressed. It fails when no
+     sync is recorded, or when a sync in host-sync's scope has an
+     explicit crossing (.cpu(), .numpy(), .item(), .tolist(), int(),
+     float(), bool()) on its source line that the engine misses;
   6. the ClickBench hits table (bench_suites.py's schema and value
      distributions, --hits-rows rows from --seed) written through
      Coordinator.write_points, flushed and compacted; its 43 queries, then
@@ -66,8 +77,9 @@ Phases, in order:
      the warm cpu_max_all_8, K2 on both paths' cold scans, no
      device-decode kernel_error outcome.
 
-Prints a JSON line of per-kernel numbers (with an "x4" list), the
-nvidia-smi line, and as its last line {"ok": true, "device": {...}}.
+Prints a JSON line of the analysis phase ({"analysis": {...}}), a JSON
+line of per-kernel numbers (with an "x4" list), the nvidia-smi line, and
+as its last line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when there is no CUDA device, when
 the package is missing, or when any phase fails.
 """
@@ -76,13 +88,16 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import linecache
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -778,6 +793,190 @@ def mesh_phase(ex, session, coord, data, legacy, checks) -> dict:
     os.environ["CNOSDB_MESH"] = "0"
     os.environ.pop("CNOSDB_MESH_DEVICES", None)
     return {"launches": launches, "queries": n_queries}
+
+
+# ---------------------------------------------------------------- analysis
+SYNC_MESSAGE = "called a synchronizing CUDA operation"
+# an explicit device->host crossing written on a source line: the syncs
+# host-sync must report or see suppressed where it applies
+EXPLICIT_CROSSING = re.compile(
+    r"\.(cpu|numpy|item|tolist)\(\)|\b(int|float|bool)\(")
+
+
+class SyncRecorder:
+    """The card's own sync reports. Under
+    torch.cuda.set_sync_debug_mode("warn") every synchronizing CUDA
+    operation warns; a lock-guarded warnings.showwarning hook (the legacy
+    path dispatches on a thread pool, and warnings.catch_warnings is not
+    thread-safe) books each, per query, by the innermost stack frame under
+    cnosdb_tpu_torch/, not the frame the warning names (ops such as
+    torch.unique warn from torch's own Python)."""
+
+    def __init__(self):
+        import cnosdb_tpu_torch
+
+        self.pkg = os.path.dirname(os.path.abspath(cnosdb_tpu_torch.__file__))
+        self.root = os.path.dirname(self.pkg)
+        self.lock = threading.Lock()
+        self.query = None
+        self.counts: dict = {}      # (relpath, line) → {query: syncs}
+        self.outside: dict = {}     # query → syncs with no package frame
+        self._saved = None
+        # every occurrence, not once per location
+        warnings.filterwarnings("always", message=".*" + SYNC_MESSAGE)
+
+    def _hook(self, message, category, filename, lineno, file=None,
+              line=None):
+        if SYNC_MESSAGE not in str(message):
+            return self._saved(message, category, filename, lineno, file,
+                               line)
+        f = sys._getframe(1)
+        while f is not None and not f.f_code.co_filename.startswith(
+                self.pkg + os.sep):
+            f = f.f_back
+        with self.lock:
+            if f is None:
+                self.outside[self.query] = \
+                    self.outside.get(self.query, 0) + 1
+                return
+            site = (os.path.relpath(f.f_code.co_filename, self.root)
+                    .replace(os.sep, "/"), f.f_lineno)
+            per = self.counts.setdefault(site, {})
+            per[self.query] = per.get(self.query, 0) + 1
+
+    @contextlib.contextmanager
+    def recording(self, query: str):
+        import torch
+
+        torch.cuda.synchronize()   # earlier work must not report here
+        self.query = query
+        self._saved = warnings.showwarning
+        warnings.showwarning = self._hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = self._saved
+
+
+def _pin_path(on_mesh: bool) -> None:
+    """The width-1 mesh lane with the mesh phase's knobs, or the main
+    path's environment: the legacy per-vnode path."""
+    if on_mesh:
+        os.environ.update(MESH_KNOBS)
+        os.environ["CNOSDB_MESH_DEVICES"] = "1"
+        return
+    for k in MESH_KNOBS:
+        os.environ.pop(k, None)
+    os.environ.pop("CNOSDB_MESH_DEVICES", None)
+    os.environ["CNOSDB_MESH"] = "0"
+
+
+def analysis_phase(ex, session, coord, checks, sql8, c8) -> dict:
+    """Step 5b: the port's engine over cnosdb_tpu_torch/ (its gate must
+    pass), then four queries under the card's sync reports, each site
+    held against the engine. Raises when the gate fails, when no sync was
+    recorded (then the debug mode proved nothing), or when a sync in
+    host-sync's scope has an explicit crossing on its source line that
+    the engine neither reports nor sees suppressed: a gap in the port's
+    taint (cnosdb_tpu_torch/analysis/interproc.py). → the phase's JSON."""
+    import torch
+
+    from cnosdb_tpu_torch import analysis
+    from cnosdb_tpu_torch.analysis import interproc, rules
+    from cnosdb_tpu_torch.ops import device_decode as dd
+    from cnosdb_tpu_torch.ops import pallas_kernels as pk
+    from cnosdb_tpu_torch.parallel import mesh
+
+    rep = analysis.run()
+    per_rule = {r: n for r, n in sorted(rep.rule_totals.items()) if n}
+    log(f"# analysis gate: ok {rep.ok}, {len(rep.findings)} findings "
+        f"({len(rep.findings) - len(rep.violations)} baselined), "
+        f"{len(rep.stale)} stale cells, per rule {per_rule}, engine wall "
+        f"{rep.wall_ms} ms")
+    if not rep.ok:
+        raise AssertionError(
+            f"analysis gate failed: {[f.render() for f in rep.violations]} "
+            f"stale {rep.stale}")
+    host_sync = interproc.HostSync()
+    static: dict = {}      # (relpath, line) → what the engine sees there
+    for rule in (host_sync, rules.TorchSync()):
+        found, suppressed = interproc.rule_sites(rule)
+        for f in found:
+            static[(f.path, f.line)] = f"reported ({rule.name})"
+        for rel, lines in suppressed.items():
+            for ln in lines:
+                static.setdefault((rel, ln), f"suppressed ({rule.name})")
+
+    rec = SyncRecorder()
+    plan = (("double_groupby_1 cold", SQL["double_groupby_1"],
+             checks["double_groupby_1"], False, "cold"),
+            ("double_groupby_1 warm", SQL["double_groupby_1"],
+             checks["double_groupby_1"], False, "warm"),
+            ("double_groupby_1 warm mesh width 1", SQL["double_groupby_1"],
+             checks["double_groupby_1"], True, "warm"),
+            ("cpu_max_all_8 warm", sql8, c8, False, "warm"))
+    walls = {}
+    for name, sql, check, on_mesh, state in plan:
+        _pin_path(on_mesh)
+        if state == "cold":
+            clear_scan_cache(coord)
+        else:
+            ex.execute_one(sql, session)   # the warm-up is not recorded
+        before = mesh.outcomes_snapshot()
+        k1, k2 = pk.launches, dd.xor_launches
+        t = time.perf_counter()
+        with rec.recording(name):
+            rs = ex.execute_one(sql, session)
+        torch.cuda.synchronize()
+        walls[name] = round((time.perf_counter() - t) * 1e3, 3)
+        check(rs)
+        engaged = mesh.outcomes_snapshot().get(("exec", "engaged"), 0) \
+            - before.get(("exec", "engaged"), 0)
+        if on_mesh and engaged != 1:
+            raise AssertionError(f"{name}: the mesh lane did not engage")
+        if name.startswith("cpu_max") and pk.launches == k1:
+            raise AssertionError(f"{name}: K1 did not run")
+        if state == "cold" and dd.xor_launches == k2:
+            raise AssertionError(f"{name}: K2 did not run")
+    _pin_path(False)
+
+    sites = []
+    for (rel, ln), per in sorted(rec.counts.items()):
+        code = linecache.getline(os.path.join(rec.root, rel), ln) \
+            .split("#", 1)[0].strip()
+        site = {"site": f"{rel}:{ln}", "per_query": per,
+                "static": static.get((rel, ln), "missed"),
+                "explicit": bool(EXPLICIT_CROSSING.search(code)),
+                "host_sync_scope": host_sync.applies_to(rel)}
+        sites.append(site)
+        log(f"# sync {site['site']}: {per} per query; static engine: "
+            f"{site['static']}; "
+            f"{'explicit' if site['explicit'] else 'implicit'}"
+            f"{'' if site['host_sync_scope'] else ', outside host-sync'}: "
+            f"{code[:90]}")
+    per_query = {name: sum(p.get(name, 0) for p in rec.counts.values())
+                 for name, *_r in plan}
+    log(f"# sync totals per query (package frames): {per_query}; with no "
+        f"package frame: {rec.outside}; query walls under the debug mode "
+        f"{walls} ms")
+    if not rec.counts:
+        raise AssertionError("no sync recorded: the debug mode proved "
+                             "nothing")
+    gaps = [s["site"] for s in sites if s["explicit"]
+            and s["host_sync_scope"] and s["static"] == "missed"]
+    if gaps:
+        raise AssertionError(f"explicit syncs the static engine misses: "
+                             f"{gaps}")
+    return {"ok": rep.ok, "rule_totals": dict(sorted(
+                rep.rule_totals.items())),
+            "findings": len(rep.findings), "wall_ms": rep.wall_ms,
+            "runtime_sites": len(sites),
+            "seen": sum(s["static"] != "missed" for s in sites),
+            "implicit": sum(not s["explicit"] for s in sites),
+            "syncs_per_query": per_query, "outside_package": rec.outside,
+            "sites": sites}
 
 
 # ---------------------------------------------------------------- ClickBench
@@ -1768,11 +1967,13 @@ def local_answers(node, data: Data):
     return out
 
 
-def wait_caught_up(node, owners, timeout: float = 180.0) -> float:
+def wait_caught_up(node, owners, peers=(), timeout: float = 180.0) -> float:
     """Until every raft member of the databases `owners` on the node has
     applied its whole log, and the logs stood still for one poll: a
     restarted follower takes entries from its leaders for a while after
-    it answers pings. → seconds waited."""
+    it answers pings. On a timeout the error shows the lagging groups'
+    members on the node and on `peers` (role, term, leader, log,
+    commit, applied). → seconds waited."""
     import json as _json
 
     t0 = time.monotonic()
@@ -1788,8 +1989,15 @@ def wait_caught_up(node, owners, timeout: float = 180.0) -> float:
                 for last, commit, applied in state.values()):
             return time.monotonic() - t0
         if time.monotonic() - t0 > timeout:
+            lagging = {k.split("#")[0] for k, (last, commit, applied)
+                       in state.items() if not last == commit == applied}
+            views = {n.node_id: {
+                k: m for k, m in _json.loads(n.http(
+                    "GET", "/debug/health"))["raft_members"].items()
+                if k.split("#")[0] in lagging} for n in (node, *peers)}
             raise AssertionError(f"node {node.node_id} did not catch up: "
-                                 f"{state}")
+                                 f"{state}; the lagging groups' members "
+                                 f"by node: {views}")
         prev = state
         time.sleep(0.5)
 
@@ -1965,6 +2173,7 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
                 ev, f"127.0.0.1:{victim.rpc_port}", NEMESIS_SEED)
             assert ospec == "", ospec
             loss0 = victim.metric("cnosdb_mesh_total", reason="device_loss")
+            off0 = victim.metric("cnosdb_mesh_total", reason="off_mesh")
             rpc_call(f"127.0.0.1:{victim.rpc_port}", "_faults",
                      {"spec": vspec}, timeout=5.0)
             try:
@@ -1976,8 +2185,12 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
                 while lost < len(CLUSTER_SQL):
                     tries += 1
                     if tries > 10:
-                        raise AssertionError(f"{ctx} step {ev.step}: "
-                                             "device_loss never booked")
+                        off = victim.metric("cnosdb_mesh_total",
+                                            reason="off_mesh") - off0
+                        raise AssertionError(
+                            f"{ctx} step {ev.step}: device_loss never "
+                            f"booked (node {victim.node_id} declined "
+                            f"off_mesh {off} times since it was armed)")
                     for name, q in CLUSTER_SQL.items():
                         before = victim.metric("cnosdb_mesh_total",
                                                reason="device_loss")
@@ -2043,7 +2256,8 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
         # overlap a file decodes on the host: flush and compact them
         # back into one file a vnode, as before the crash, so that the
         # first read decodes its pages on the device lane
-        caught_up_s = wait_caught_up(victim, ("cnosdb.tsbs", "cnosdb.dcw"))
+        caught_up_s = wait_caught_up(victim, ("cnosdb.tsbs", "cnosdb.dcw"),
+                                     others)
         mem = victim.metric("cnosdb_memory_pool_bytes", pool="memcache")
         victim.sql("FLUSH")
         victim.sql("COMPACT DATABASE tsbs")
@@ -2336,6 +2550,9 @@ def main(argv=None) -> int:
         # 5. the mesh lane, its own counts zeroed just before it
         mesh_run = mesh_phase(ex, s, coord, data, legacy, checks)
 
+        # 5b. the invariant-analysis plane against the card's sync reports
+        analysis_run = analysis_phase(ex, s, coord, checks, sql8, c8)
+
         # 6. the ClickBench hits path, its own counts zeroed just before it
         t = time.perf_counter()
         hits = build_hits(coord, args.seed, args.hits_rows)
@@ -2449,6 +2666,7 @@ def main(argv=None) -> int:
          "library_ms": None},
     ]
     log(f"# chip_smoke: {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"analysis": analysis_run}), flush=True)
     print(json.dumps({"kernels": kernels, "x4": x4, "segment_sum": sums,
                       "cluster": cluster_run}), flush=True)
     print(smi, flush=True)

@@ -311,7 +311,7 @@ class DeviceDecodeLane:
             groups.setdefault(self._group_key(j), []).append(j)
         for key, jobs in groups.items():
             out = self._run_group(key, jobs)
-            host = out.cpu().numpy()   # one copy per row group
+            host = out.cpu().numpy()  # lint: disable=host-sync (audited transfer point: the decode lane's one pull per row group)
             for bi, j in enumerate(jobs):
                 n = j.plan["n"]
                 j.dev = out[bi, :n]

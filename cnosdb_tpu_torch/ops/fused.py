@@ -131,7 +131,7 @@ class PendingFused:
         self.agg_cols = agg_cols
 
     def fetch(self) -> dict[str, dict]:
-        mat = self.dev_out.cpu().numpy()  # [n_slots, ns_pad], one copy
+        mat = self.dev_out.cpu().numpy()  # lint: disable=host-sync (audited transfer point: the [n_slots, ns_pad] matrix, one pull per program)
         out: dict[str, dict] = {}
         for i, (col, agg) in enumerate(self.manifest):
             row = mat[i, :self.num_segments]
@@ -235,7 +235,8 @@ def _build_kernel(filter_expr: Expr | None, col_wants: dict,
                                     device=dev))
             fmask = filter_expr.eval(env, TorchXP(dev))
             if not isinstance(fmask, torch.Tensor):   # constant predicate
-                fmask = torch.full((n,), bool(fmask), device=dev)
+                fmask = torch.full((n,), fmask, dtype=torch.bool,
+                                   device=dev)
             mask = mask & fmask
             # null operands exclude rows (host path does the same)
             for c in filter_expr.columns():

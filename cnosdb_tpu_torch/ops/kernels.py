@@ -76,7 +76,7 @@ def ordered_segment_sum(values, seg, num_segments: int):
     lengths = torch.bincount(seg, minlength=num_segments)
     runs = torch.clamp((lengths + ORDERED_CHUNK - 1) // ORDERED_CHUNK,
                        min=1)
-    n_runs = int(runs.sum())
+    n_runs = int(runs.sum())  # lint: disable=host-sync (the run count sizes repeat_interleave's output: one sync per ordered f64 sum, a known cost)
     run_seg = torch.repeat_interleave(
         torch.arange(num_segments, device=dev), runs, output_size=n_runs)
     first_run = torch.cumsum(runs, 0) - runs
@@ -313,7 +313,7 @@ def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+    return t.cpu().numpy()  # lint: disable=host-sync (THE audited transfer point of the host-prep path and X4: every result pull goes through here, one per result tensor)
 
 
 def aggregate_column_host(values: np.ndarray, valid: np.ndarray,

@@ -400,25 +400,32 @@ class _Slot:
         self.pending = False   # a copy out of `stage` may still run
 
     @staticmethod
-    def _grow(buf, nbytes: int, **kw):
+    def _size(buf, nbytes: int) -> int:
+        """0 when `buf` holds nbytes, else the byte size to grow it to."""
         if buf is not None and buf.numel() >= nbytes:
+            return 0
+        return 1 << max(16, (max(nbytes, 1) - 1).bit_length())
+
+    def _grow_pinned(self, buf, nbytes: int):
+        """`buf`, or a larger page-locked host buffer."""
+        size = self._size(buf, nbytes)
+        if not size:
             return buf
-        size = 1 << max(16, (max(nbytes, 1) - 1).bit_length())
-        return torch.empty(size, dtype=torch.uint8, **kw)
+        return torch.empty(size, dtype=torch.uint8, pin_memory=True)
 
     def staging(self, nbytes: int):
         """The input buffer (numpy view), ≥ nbytes, once the last copy
         out of it has finished."""
         if self.pending:
-            self.done.synchronize()
+            self.done.synchronize()  # lint: disable=host-sync (waits for the last copy out of this pinned buffer before refilling it; no data crosses)
             self.pending = False
-        grown = self._grow(self.stage, nbytes, pin_memory=True)
+        grown = self._grow_pinned(self.stage, nbytes)
         if grown is not self.stage:
             self.stage, self.stage_np = grown, grown.numpy()
         return self.stage_np
 
     def result_buffer(self, nbytes: int):
-        grown = self._grow(self.results, nbytes, pin_memory=True)
+        grown = self._grow_pinned(self.results, nbytes)
         if grown is not self.results:
             self.results, self.results_np = grown, grown.numpy()
         return self.results_np
@@ -426,7 +433,9 @@ class _Slot:
     def device_buffer(self, nbytes: int, dev) -> torch.Tensor:
         if self.scratch is not None and self.scratch.device != dev:
             self.scratch = None
-        self.scratch = self._grow(self.scratch, nbytes, device=dev)
+        size = self._size(self.scratch, nbytes)
+        if size:
+            self.scratch = torch.empty(size, dtype=torch.uint8, device=dev)
         return self.scratch
 
 
@@ -482,7 +491,7 @@ def _run_staged(dev, plan: StagePlan, f64: bool, fill, rows, fetch: bool):
         if not fetch:
             slot.pending = True
             return buf, {k: region(buf, plan, k) for k in _OUTS}
-        slot.done.synchronize()
+        slot.done.synchronize()  # lint: disable=host-sync (audited transfer point: K1's one wait for its packed results in pinned memory)
         out = {}
         for k in _OUTS:
             off, count, d = plan.regions[k]

@@ -193,6 +193,6 @@ def distributed_aggregate_host(values: np.ndarray, valid: np.ndarray,
     dr = put_sharded(_pad(rank, np_pad, fill=0), mesh, spec)
     out = _dist_kernel(dv, dm, ds, dr, mesh=mesh, num_segments=ns_pad,
                        want_first=want_first, want_last=want_last)
-    host = {k: v[:num_segments].cpu().numpy() for k, v in out.items()}
+    host = {k: v[:num_segments].cpu().numpy() for k, v in out.items()}  # lint: disable=host-sync (audited transfer point: one pull per merged column)
     host["count"] = host["count"].astype(np.int64)
     return host

@@ -22,6 +22,11 @@ COPIED_FILES = (
     "errors.py", "faults.py", "config.py",
     "ops/group_agg.py", "ops/zonemap.py", "ops/strkernels.py",
     "ops/mesh_exec.py", "ops/tpu_exec.py",
+    # the analysis engine: core, CLI, per-file rules and the
+    # interprocedural substrate (its torch taint is held by
+    # tests/test_torch_analysis.py)
+    "analysis/__init__.py", "analysis/__main__.py", "analysis/rules.py",
+    "analysis/interproc.py",
 )
 # parallel/ minus the two jax modules, which the port rewrites in torch
 NOT_COPIED_PARALLEL = {"mesh.py", "distributed_agg.py"}
@@ -31,6 +36,184 @@ NOT_COPIED = {"utils/relay.py"}
 
 # every copy: string module names point at the port
 GLOBAL_SUBS = [('"cnosdb_tpu.', '"cnosdb_tpu_torch.')]
+# interproc.py: the module docstring and the taint's constants describe
+# torch, the jit aliases and their bookkeeping go (nothing in the port
+# compiles a program), and the hot scope and module naming name the port
+_INTERPROC_SUBS = [
+    ("""The per-file rules in :mod:`.rules` cannot see that ``np.asarray(x)``
+is a device→host sync when ``x`` came out of a jitted kernel two call
+edges away. This module builds what they are missing:""",
+     """The port of cnosdb_tpu/analysis/interproc.py, with the device taint
+redesigned for eager torch on a CUDA card. The per-file rules in
+:mod:`.rules` cannot see that ``int(x)`` is a device→host sync when
+``x`` came out of a torch op two call edges away. This module builds
+what they are missing:"""),
+    ("""  each file's imports, module-level ``X = jax.jit(f)`` aliases, and the
+  named locks (``lockwatch.Lock(...)`` / ``threading.Lock()`` targets);""",
+     """  each file's imports, and the named locks (``lockwatch.Lock(...)`` /
+  ``threading.Lock()`` targets);"""),
+    ("""  host/device, seeded by ``jnp.*``/``jax.*``/``lax.*`` calls,
+  ``device_put``/``pallas_call``, jit aliases, and device-returning
+  callees; ``np.asarray``/``float()``/``int()``/``bool()``/``len()``/
+  ``.item()``/``.tolist()`` are the *crossings* — their results are
+  host (and, in a hot path, the crossing itself is a finding).
+""",
+     """  host/device. Device values enter through ``torch.*`` tensor ops,
+  ``.to(<a device that is not the CPU>)``, ``.cuda()``,
+  ``put_sharded`` and device-returning callees (``device_cache._put``,
+  ``kernels.to_device``). These stay host: torch metadata
+  (``torch.cuda.is_available``, ``device_count``, ``torch.device``,
+  ``torch.iinfo``, dtypes), ``torch.from_numpy``, factories whose
+  ``device=`` is absent or the CPU (and that pass no ``**kw``),
+  page-locked factories (``pin_memory=True``), and tensor metadata
+  (``.shape``, ``.dtype``, ``.device``, ``.numel()``, ...).
+  ``np.asarray``/``float()``/``int()``/``bool()``/``len()``/
+  ``.item()``/``.tolist()``/``.cpu()``/``.numpy()``/``.to("cpu")`` are
+  the *crossings* — their results are host (and, in a hot path, the
+  crossing itself is a finding).
+
+Dispatch — what lock-held-dispatch looks for — is any torch op but the
+metadata ones, ``.to()``/``.cuda()``/``.cpu()``, and the entry points
+of a hand-written kernel's library (a name bound to
+``cuda_build.library(...)``, called directly, through ``getattr`` or
+through a local alias).
+"""),
+    ("would re-flag every one through every accessor.\n",
+     """would re-flag every one through every accessor. ``.cpu()`` and
+``.to("cpu")`` exist only on tensors, so they are crossings whatever
+their receiver, attributes included.
+"""),
+    ("""Rules shipped on this substrate: host-sync, recompile-hazard,
+lock-held-dispatch, deadline-propagation""",
+     """Rules shipped on this substrate: host-sync, lock-held-dispatch,
+deadline-propagation"""),
+    ("""# modules whose attribute calls produce device values / dispatch work
+_DEVICE_MODULES = {"jnp", "lax", "pl", "pltpu"}
+_DEVICE_ENTRY_NAMES = {"device_put", "pallas_call"}
+# under the bare `jax` namespace only these attrs touch arrays —
+# jax.devices() / jax.local_device_count() return host metadata handles
+_JAX_ARRAY_ATTRS = {"numpy", "lax", "ops", "device_put", "jit", "pmap",
+                    "vmap", "block_until_ready", "pure_callback"}
+""",
+     """# torch.* calls that read host metadata: no tensor, no dispatch
+_TORCH_METADATA = {
+    "device", "dtype", "iinfo", "finfo", "is_tensor", "is_floating_point",
+    "get_default_dtype", "is_available", "device_count", "current_device",
+    "get_device_name", "get_device_properties", "get_device_capability",
+    "is_initialized",
+}
+# torch.* factories: their result lives where device= says (the CPU when
+# it is absent)
+_TORCH_FACTORIES = {
+    "empty", "zeros", "ones", "full", "arange", "linspace", "logspace",
+    "eye", "tensor", "as_tensor", "empty_strided", "rand", "randn",
+    "randint", "randperm", "frombuffer",
+}
+# calls by these names return device values the summaries cannot see
+# through: put_sharded wraps its device shards in a ShardedTensor
+_DEVICE_ENTRY_NAMES = {"put_sharded"}
+# tensor attributes / methods that read metadata, not data: no sync
+_TENSOR_META_ATTRS = {"shape", "ndim", "dtype", "device", "is_cuda",
+                      "layout", "itemsize", "nbytes", "requires_grad"}
+_TENSOR_META_METHODS = {"numel", "dim", "size", "stride", "data_ptr",
+                        "element_size", "nelement", "is_contiguous",
+                        "is_pinned", "is_floating_point", "get_device",
+                        "storage_offset"}
+"""),
+    ('_HOST_CAST_METHODS = {"item", "tolist"}\n',
+     """_HOST_CAST_METHODS = {"item", "tolist", "cpu", "numpy"}
+# methods that move or convert a tensor: dispatch whatever the receiver
+_DISPATCH_METHODS = {"to", "cuda", "cpu"}
+"""),
+    ("``jnp.linalg.norm`` → ``jnp``",
+     "``torch.cuda.is_available`` → ``torch``"),
+    # FuncInfo: no jit flags and no synthetic (jit alias) entries
+    ('                 "jitted", "static_argnames", "synthetic", '
+     '"call_sites",\n',
+     '                 "call_sites",\n'),
+    ("""    def __init__(self, qualname: str, relpath: str, node,
+                 synthetic: bool = False):
+""", "    def __init__(self, qualname: str, relpath: str, node):\n"),
+    ("        self.synthetic = synthetic\n", ""),
+    ("        self.jitted = False\n"
+     "        self.static_argnames: set = set()\n", ""),
+    ("            if info.synthetic:\n                continue\n", ""),
+    ("        if info.synthetic:\n            return set()\n", ""),
+    ("if info.synthetic or not info.accepts_deadline:",
+     "if not info.accepts_deadline:"),
+    ("""        pending = collections.deque(
+            i for i in self.functions if not i.synthetic)
+""", "        pending = collections.deque(self.functions)\n"),
+    ('                ("jit", info.jitted),\n', ""),
+    ("""            if node.name.endswith("_kernel"):
+                info.jitted = True
+            for dec in node.decorator_list:
+                if _contains_jit(dec):
+                    info.jitted = True
+                    if isinstance(dec, ast.Call):
+                        info.static_argnames |= _static_argnames(dec)
+            if info.jitted:
+                # calling a jitted function yields device arrays no
+                # matter what its body looks like textually
+                info.returns_device = True
+""", ""),
+    ("""                elif _contains_jit(call.func):
+                    self._add_jit_alias(fi, node, call)
+""", ""),
+    ("        self.jit_aliases: dict = {}      "
+     "# name → synthetic FuncInfo\n", ""),
+    ("            if n in fi.jit_aliases:\n"
+     "                return fi.jit_aliases[n]\n", ""),
+    ("""                    return tfi.jit_aliases.get(tgt[1]) \\
+                        or tfi.toplevel.get(tgt[1])
+""", "                    return tfi.toplevel.get(tgt[1])\n"),
+    ("""                        return tfi.jit_aliases.get(a) \\
+                            or tfi.toplevel.get(a)
+""", "                        return tfi.toplevel.get(a)\n"),
+    # the module name binds the port's relative imports
+    ("""        # dotted module name: cnosdb_tpu/ops/kernels.py →
+        # cnosdb_tpu.ops.kernels; files""",
+     """        # dotted module name: cnosdb_tpu_torch/ops/kernels.py →
+        # cnosdb_tpu_torch.ops.kernels; files"""),
+    ('if parts and parts[0] == "cnosdb_tpu":',
+     'if parts and parts[0] == "cnosdb_tpu_torch":'),
+    # the entry points of the hand-written kernels' libraries dispatch
+    ("        self.lock_names: set = set()\n        for ctx in contexts:\n",
+     """        self.lock_names: set = set()
+        self._kernel_calls: set = set()  # id(ast.Call) of library entries
+        for ctx in contexts:
+"""),
+    ("""                                              "lineno", 0)))
+        self._fixpoint()
+""", """                                              "lineno", 0)))
+            self._mark_kernel_calls(info)
+        self._fixpoint()
+"""),
+    # host-sync's scope: the mesh lane's collective merge was a jitted
+    # program in the JAX package (the tracer guarded it); here it is
+    # eager torch whose pulls only this rule sees
+    ('_HOT_PATHS = ("cnosdb_tpu/ops/",)\n'
+     '_HOT_FILES = ("cnosdb_tpu/storage/scan.py", '
+     '"cnosdb_tpu/sql/executor.py")\n',
+     """_HOT_PATHS = ("cnosdb_tpu_torch/ops/",)
+# the mesh lane's collective merge: in the JAX package a jitted program
+# (the tracer guarded it), here eager torch whose pulls only this rule
+# sees
+_HOT_FILES = ("cnosdb_tpu_torch/storage/scan.py",
+              "cnosdb_tpu_torch/sql/executor.py",
+              "cnosdb_tpu_torch/parallel/distributed_agg.py")
+"""),
+    ('    call edges) from jax ops, inside the scan/exec/kernel hot '
+     'paths."""',
+     """    call edges) from torch ops, inside the scan/exec/kernel hot paths,
+    and the explicit syncs there: ``.cpu()``/``.to("cpu")`` on any
+    receiver, and ``.synchronize()`` on a stream, an event or the
+    card.\"\"\""""),
+    ("the XLA pipeline mid-query", "the device pipeline mid-query"),
+    ("reaches jnp dispatch or rpc_call two edges down",
+     "reaches a torch op or rpc_call two edges down"),
+    ("one slow compile/", "one slow launch/"),
+]
 # per file: exact line substitutions
 SUBS = {
     "ops/tpu_exec.py": [('scan_device().platform == "cpu"',
@@ -63,6 +246,31 @@ SUBS = {
          '<root>"')],
     # the program name follows the port's console script
     "client/cli.py": [("cnosdb-tpu-cli", "cnosdb-tpu-torch-cli")],
+    # the engine lints its own package: the CLI's and docstrings' module
+    # name, and the relpath keys
+    "analysis/__init__.py": [
+        ("cnosdb_tpu.analysis", "cnosdb_tpu_torch.analysis"),
+        ("``cnosdb_tpu/...``", "``cnosdb_tpu_torch/...``")],
+    "analysis/__main__.py": [
+        ("cnosdb_tpu.analysis", "cnosdb_tpu_torch.analysis"),
+        ('"cnosdb_tpu invariants"', '"cnosdb_tpu_torch invariants"')],
+    "analysis/rules.py": [
+        # jax-purity's section header and scope become torch-sync's
+        # (its file list lives in the TorchSync class)
+        ("# 7. jax-purity — new: Python control flow / host syncs on "
+         "traced values\n",
+         "# 7. torch-sync — new: Python truth tests on tensors, .item()\n"),
+        ('_JAX_PURITY_FILES = ("cnosdb_tpu/ops/kernels.py",\n'
+         '                     "cnosdb_tpu/ops/group_agg.py",\n'
+         '                     "cnosdb_tpu/ops/pallas_kernels.py",\n'
+         '                     "cnosdb_tpu/ops/device_decode.py")\n'
+         '_ARRAY_MODULES = {"jnp", "lax", "pl"}\n', ""),
+        ("SwallowedException(), JaxPurity(),",
+         "SwallowedException(), TorchSync(),"),
+        # every rule scope is a relpath under the linted package
+        ('"cnosdb_tpu/', '"cnosdb_tpu_torch/'),
+        ("~cnosdb_tpu.analysis.Rule", "~cnosdb_tpu_torch.analysis.Rule")],
+    "analysis/interproc.py": _INTERPROC_SUBS,
 }
 # per file: functions rewritten for the port (qualified names)
 REWRITTEN = {
@@ -79,9 +287,38 @@ REWRITTEN = {
     # collided in peers' cancel tombstones (a restarted node's queries
     # were refused as cancelled)
     "sql/executor.py": {"QueryTracker.__init__", "QueryTracker.register"},
+    # the device taint: torch seeds and crossings instead of jnp/lax,
+    # device_put/pallas_call and jit aliases; host-sync also flags the
+    # explicit syncs (.cpu(), .to("cpu"), .synchronize()) on any
+    # receiver; recompile-hazard leaves the registry
+    "analysis/interproc.py": {"_is_host_cast", "Project._is_device_call",
+                              "Project._expr_device", "HostSync.check",
+                              "project_rules"},
 }
-# per file: functions of the original that the port drops
-DROPPED = {"server/main.py": {"_guard_degraded_relay"}}
+# per file: functions and classes of the original that the port drops
+DROPPED = {
+    "server/main.py": {"_guard_degraded_relay"},
+    # jax-purity guarded jit-traced bodies; the port compiles nothing
+    # (its torch counterpart is TorchSync, below)
+    "analysis/rules.py": {"_contains_jit", "_static_argnames", "JaxPurity"},
+    # jit aliases and the retrace rule: nothing in the port calls
+    # torch.compile or torch.jit
+    "analysis/interproc.py": {"_contains_jit", "_static_argnames",
+                              "Project._add_jit_alias", "RecompileHazard"},
+}
+# per file: functions and classes the port adds
+ADDED = {
+    # Python truth tests and .item() on tensors: eager torch has no
+    # tracer to refuse them, so the lint is their only guard
+    "analysis/rules.py": {"TorchSync"},
+    # the torch taint's helpers: where a torch call's result lives, the
+    # kernel libraries' entry points, and the sites a rule reports or
+    # sees suppressed (chip_smoke.py holds the card's syncs against them)
+    "analysis/interproc.py": {"_torch_chain", "_is_cpu", "_is_dtype",
+                              "_host_placed", "torch_call_kind", "to_kind",
+                              "Project._mark_kernel_calls",
+                              "Project._makes_device_value", "rule_sites"},
+}
 
 
 def _copied() -> list[str]:
@@ -99,13 +336,18 @@ def _copied() -> list[str]:
 
 def _mask(text: str, names: set, dropped: set = frozenset()) -> str:
     """Blank the bodies of the named (qualified) functions, and remove
-    the `dropped` ones outright."""
+    the `dropped` functions and classes outright."""
     lines = text.splitlines()
     found = set()
 
     def visit(node, prefix):
         for child in ast.iter_child_nodes(node):
-            if isinstance(child, ast.ClassDef):
+            if isinstance(child, ast.ClassDef) \
+                    and prefix + child.name in dropped:
+                found.add(prefix + child.name)
+                for i in range(child.lineno - 1, child.end_lineno):
+                    lines[i] = ""
+            elif isinstance(child, ast.ClassDef):
                 visit(child, prefix + child.name + ".")
             elif isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 q = prefix + child.name
@@ -138,9 +380,9 @@ def test_copy_is_verbatim_but_for_the_listed_edits(rel):
             assert old in want, f"{rel}: substitution source gone: {old!r}"
         want = want.replace(old, new)
     names = REWRITTEN.get(rel, set())
-    if names or rel in DROPPED:
+    if names or rel in DROPPED or rel in ADDED:
         want = _mask(want, names, DROPPED.get(rel, set()))
-        got = _mask(got, names)
+        got = _mask(got, names, ADDED.get(rel, set()))
     assert got == want, f"{rel} drifted from cnosdb_tpu/{rel}"
 
 
