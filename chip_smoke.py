@@ -70,7 +70,8 @@ Phases, in order:
   8. each kernel at the shape the main path gave it, on the card, against
      its plain version (twice, for bit-stable output), with its time, the
      plain version's time, the torch library ops' time for K1, and its
-     bound, and K1 again at the shape the hits phase gave it most; each X4
+     bound, and K1 again at the whole TSBS table and at the shape the hits
+     phase gave it most; each X4
      op likewise against its plain numpy version at the largest shape the
      hits phase gave it;
   9. assertions: scan device is cuda, the fused program launched, K1 ran on
@@ -356,7 +357,9 @@ def compare_k1(shape, seed: int, dev, n_series: int = 1,
     `call_ms` the host wrapper from numpy in to numpy out (what
     aggregate_column_host pays), `plain_ms`, and `library_ms` the torch
     library ops that compute the same function (held against the plain
-    version first)."""
+    version first). `bound_ms` counts the function's own bytes (13 B a
+    row in, 28 B a segment out), whatever layout an implementation
+    stages."""
     import torch
 
     from cnosdb_tpu_torch.ops import kernels
@@ -404,14 +407,17 @@ def compare_k1(shape, seed: int, dev, n_series: int = 1,
                                                           ns),
                        iters=call_iters)
                if call else None)
-    moved = (n * (8 + 1 + 4)                      # values, valid, seg ids
-             + layout.bases.nbytes + layout.slot_off.nbytes
-             + layout.fold_pos.nbytes + layout.seg_start.nbytes
-             + ns * (4 + 8 * 3))                   # count/sum/min/max out
+    moved = k1_bytes(n, ns)
     return {"ms": ms, "kernel_ms": kernel_ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "max_abs_err": worst,
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes": moved}
+
+
+def k1_bytes(n: int, ns: int) -> int:
+    """What K1's function must move: values, valid flags and segment ids
+    in (13 B a row), count/sum/min/max out (28 B a segment)."""
+    return n * (8 + 1 + 4) + ns * (4 + 8 * 3)
 
 
 def k1_threads(shape, seed: int, n_series: int, threads: int = 8,
@@ -2607,9 +2613,13 @@ def main(argv=None) -> int:
     big = (data.rows, N_HOSTS * data.nb, "torch.float64")
     rb = compare_k1(big, args.seed + 1, dev, n_series=N_HOSTS, grouped=True,
                     call=False)
+    whole_k1 = {"at": list(big), **{k: rb[k] for k in (
+        "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+        "max_abs_err")}}
     log(f"# K1 at {big} (whole table, double_groupby layout; not on the "
         f"main path): ms {rb['ms']:.4f}, kernel_ms {rb['kernel_ms']:.4f} "
-        f"(plain {rb['plain_ms']:.4f} ms, bound {rb['bound_ms']:.5f} ms, "
+        f"(plain {rb['plain_ms']:.4f} ms, library {rb['library_ms']:.4f} "
+        f"ms, bound {rb['bound_ms']:.5f} ms for {rb['bytes']} B, "
         f"{100 * rb['bound_ms'] / rb['kernel_ms']:.1f} % of it by "
         "kernel_ms)")
     t = time.perf_counter()
@@ -2633,8 +2643,9 @@ def main(argv=None) -> int:
             f"{hits_run['K1']} launches): ms {rh['ms']:.4f}, kernel_ms "
             f"{rh['kernel_ms']:.4f}, call_ms {rh['call_ms']:.4f}, plain "
             f"{rh['plain_ms']:.4f} ms, library {rh['library_ms']:.4f} ms, "
-            f"bound {rh['bound_ms']:.5f} ms for "
-            f"{rh['bytes']} B; max |sum - plain| {rh['max_abs_err']:.3g}; "
+            f"bound {rh['bound_ms']:.5f} ms for {rh['bytes']} B "
+            f"({100 * rh['bound_ms'] / rh['kernel_ms']:.1f} % of it by "
+            f"kernel_ms); max |sum - plain| {rh['max_abs_err']:.3g}; "
             "count/min/max exact, sum rtol 1e-12; bit-stable over two runs")
 
     x4 = compare_x4(hits_run, hits, args.seed, dev)
@@ -2647,7 +2658,8 @@ def main(argv=None) -> int:
          "launches": launches["K1"],
          "mesh_launches": mesh_run["launches"]["K1"],
          "hits_launches": hits_run["K1"], "hits": hits_k1,
-         "max_abs_err": max(r1["max_abs_err"],
+         "whole_table": whole_k1,
+         "max_abs_err": max(r1["max_abs_err"], rb["max_abs_err"],
                             hits_k1["max_abs_err"] if hits_k1 else 0.0),
          "ms": r1["ms"], "kernel_ms": r1["kernel_ms"],
          "call_ms": r1["call_ms"], "plain_ms": r1["plain_ms"],

@@ -36,16 +36,17 @@ _I64 = ctypes.c_int64
 # C signature of every exported kernel entry point: (argtypes, restype)
 _SIGNATURES = {
     "segment_window": {
-        "segment_window_f64": ([_P] * 16 + [_I64] * 3 + [ctypes.c_int, _P],
+        "segment_window_f64": ([_P] * 17 + [_I64] * 4 + [ctypes.c_int, _P],
                                ctypes.c_int),
-        "segment_window_i64": ([_P] * 16 + [_I64] * 3 + [ctypes.c_int, _P],
+        "segment_window_i64": ([_P] * 17 + [_I64] * 4 + [ctypes.c_int, _P],
                                ctypes.c_int),
         "segment_window_call_f64": ([_P, _P, _I64, _P, _I64, _I64, _P, _P]
-                                    + [_I64] * 3 + [_P, _P], ctypes.c_int),
+                                    + [_I64] * 4 + [_P, _P], ctypes.c_int),
         "segment_window_call_i64": ([_P, _P, _I64, _P, _I64, _I64, _P, _P]
-                                    + [_I64] * 3 + [_P, _P], ctypes.c_int),
-        "segment_window_bounds": ([_P, _I64, _I64, _I64, _P, _P], _I64),
-        "segment_window_pack": ([_P] * 5 + [_I64, _P, _P, _I64, _I64],
+                                    + [_I64] * 4 + [_P, _P], ctypes.c_int),
+        "segment_window_bounds": ([_P, _I64, _I64, _I64, _I64]
+                                  + [_P] * 5, _I64),
+        "segment_window_pack": ([_P] * 5 + [_I64, _P, _P, _P, _I64, _I64],
                                 None),
     },
     "xor_scan": {

@@ -5,19 +5,20 @@ so the copied host layers find it). The JAX package's Pallas kernel
 exploited the STORAGE LAYOUT: scan batches are series-contiguous and
 time-ordered, so the `group × n_buckets + bucket` segment ids of each
 256-row tile span a narrow contiguous window. Here the same layout feeds
-a hand-written CUDA kernel (csrc/segment_window.cu) that reduces each
-tile over only its actual span and folds the tile partials into the final
-[num_segments] count/sum/min/max in a fixed order, in one launch — no
+a hand-written CUDA kernel (csrc/segment_window.cu) with two levels: a
+block reduces a run of up to TILES_PER_RUN tiles into per-warp windows in
+shared memory, and a warp of the block that completes a segment folds
+that segment's block partials in a fixed order, all in one launch — no
 dense window, no float atomics.
 
 `window_layout` is the host half: the per-tile window bases (what
 `applicable` returned in the JAX package, None when a tile's span
-disqualifies the layout), each tile's partial-slot
-offset, and each partial slot's place in (segment, tile) order, which
-lays every segment's partials out contiguously in tile order for the
-fold. `window_partials` runs the kernel on a CUDA tensor and its plain
-PyTorch version (`window_partials_plain`, the same two passes as scatter
-reductions) on a CPU tensor.
+disqualifies the layout), the block runs (first tile, lowest segment id,
+first partial slot), and each partial slot's place in (segment, run)
+order, which lays every segment's partials out contiguously in run order
+for the fold. `window_partials` runs the kernel on a CUDA tensor and its
+plain PyTorch version (`window_partials_plain`, the same two passes as
+scatter reductions) on a CPU tensor.
 
 Staging: one call packs everything the kernel reads that is not already
 on the card (rows, layout, zeroed arrival counters) into one page-locked
@@ -44,14 +45,16 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import struct
 import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-R_TILE = 256     # rows per tile (one CUDA block)
-W_WIN = 2048     # widest segment span a tile may cover
+R_TILE = 256     # rows per tile (one warp of a CUDA block)
+W_WIN = 2048     # widest segment span a tile, or a block run, may cover
+TILES_PER_RUN = 64   # tiles a block run takes at most (one CUDA block)
 
 _lock = threading.Lock()
 _engagements = 0
@@ -109,23 +112,62 @@ def declines() -> dict[str, int]:
 
 @dataclass
 class WindowLayout:
-    """Host-computed layout of one K1 call (all numpy)."""
+    """Host-computed layout of one K1 call (all numpy): the tiles' bases
+    and the block runs. Run r covers tiles [run_tile[r], run_tile[r + 1])
+    and segments [run_base[r], run_base[r] + its span), its partial slots
+    from slot_off[r]."""
 
-    bases: np.ndarray      # [tiles] i32: the tile's lowest segment id
-    slot_off: np.ndarray   # [tiles + 1] i64: first partial slot of a tile
+    bases: np.ndarray | None  # [tiles] i32: the tile's lowest segment id
+                              # (not staged: the kernel reads runs)
+    run_tile: np.ndarray   # [runs + 1] i32: a run's first tile
+    run_base: np.ndarray   # [runs] i32: a run's lowest segment id
+    slot_off: np.ndarray   # [runs + 1] i64: first partial slot of a run
     fold_pos: np.ndarray   # [slots] i32: a slot's place in (segment,
-                           # tile) order
-    seg_start: np.ndarray  # [num_segments + 1] i64: a segment's run in order
+                           # run) order
+    seg_start: np.ndarray  # [num_segments + 1] i64: a segment's partials
+                           # in that order; its length is the arrival
+                           # target
 
     @property
     def n_slots(self) -> int:
         return int(self.slot_off[-1])
+
+    @property
+    def n_runs(self) -> int:
+        return len(self.run_base)
+
+    @functools.cached_property
+    def span_max(self) -> int:
+        """The widest run: the window a block keeps per warp."""
+        return int(np.diff(self.slot_off).max())
 
 
 def _tile_bounds(seg_ids: np.ndarray):
     starts = np.arange(0, len(seg_ids), R_TILE)
     return (np.minimum.reduceat(seg_ids, starts).astype(np.int64),
             np.maximum.reduceat(seg_ids, starts).astype(np.int64))
+
+
+def _block_runs(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """First tile of each block run, and the tile count last: a run takes
+    the next tile while it has fewer than TILES_PER_RUN tiles and its union
+    span of segment ids stays within W_WIN."""
+    tiles = len(lo)
+    starts = np.arange(0, tiles, TILES_PER_RUN)
+    if int((np.maximum.reduceat(hi, starts)
+            - np.minimum.reduceat(lo, starts)).max()) < W_WIN:
+        return np.append(starts, tiles).astype(np.int32)
+    first = [0]
+    r_lo, r_hi, count = int(lo[0]), int(hi[0]), 1
+    for t in range(1, tiles):
+        u_lo, u_hi = min(r_lo, int(lo[t])), max(r_hi, int(hi[t]))
+        if count < TILES_PER_RUN and u_hi - u_lo < W_WIN:
+            r_lo, r_hi, count = u_lo, u_hi, count + 1
+        else:
+            first.append(t)
+            r_lo, r_hi, count = int(lo[t]), int(hi[t]), 1
+    first.append(tiles)
+    return np.asarray(first, dtype=np.int32)
 
 
 def window_layout(seg_ids: np.ndarray, num_segments: int
@@ -142,19 +184,23 @@ def window_layout(seg_ids: np.ndarray, num_segments: int
         raise ValueError(
             f"segment ids outside [0, {num_segments}): "
             f"{int(lo.min())}..{int(hi.max())}")
-    spans = hi - lo + 1
+    run_tile = _block_runs(lo, hi)
+    starts = run_tile[:-1]
+    r_lo = np.minimum.reduceat(lo, starts)
+    spans = np.maximum.reduceat(hi, starts) - r_lo + 1
     slot_off = np.zeros(len(spans) + 1, dtype=np.int64)
     np.cumsum(spans, out=slot_off[1:])
     total = int(slot_off[-1])
-    gid = np.arange(total, dtype=np.int64) + np.repeat(lo - slot_off[:-1],
+    gid = np.arange(total, dtype=np.int64) + np.repeat(r_lo - slot_off[:-1],
                                                        spans)
-    # stable: a segment's partials keep tile order, so the fold is fixed
+    # stable: a segment's partials keep run order, so the fold is fixed
     order = np.argsort(gid, kind="stable")
     fold_pos = np.empty(total, dtype=np.int32)
     fold_pos[order] = np.arange(total, dtype=np.int32)
     seg_start = np.zeros(num_segments + 1, dtype=np.int64)
     np.cumsum(np.bincount(gid, minlength=num_segments), out=seg_start[1:])
-    return WindowLayout(lo.astype(np.int32), slot_off, fold_pos, seg_start)
+    return WindowLayout(lo.astype(np.int32), run_tile,
+                        r_lo.astype(np.int32), slot_off, fold_pos, seg_start)
 
 
 def _identity(dt: torch.dtype, mode: str):
@@ -175,14 +221,19 @@ def _extreme(vals, idx, size: int, mode: str):
 def window_partials_plain(values, valid, seg_ids, layout: WindowLayout,
                           num_segments: int) -> dict:
     """Plain PyTorch version of K1 (same inputs, same two passes):
-    pass 1 reduces each tile's valid rows into its partial slots, pass 2
-    folds every segment's slots in layout order."""
+    pass 1 reduces each block run's valid rows into its partial slots,
+    pass 2 folds every segment's slots in layout order."""
     dev, dt = values.device, values.dtype
     ok = valid.to(torch.bool)
-    tile = torch.arange(values.shape[0], device=dev) // R_TILE
-    bases = torch.from_numpy(layout.bases).to(dev).to(torch.int64)
+    tiles_per_run = torch.from_numpy(
+        np.diff(layout.run_tile).astype(np.int64)).to(dev)
+    run_of_tile = torch.repeat_interleave(
+        torch.arange(len(layout.run_base), device=dev), tiles_per_run,
+        output_size=int(layout.run_tile[-1]))
+    run = run_of_tile[torch.arange(values.shape[0], device=dev) // R_TILE]
+    run_base = torch.from_numpy(layout.run_base).to(dev).to(torch.int64)
     slot_off = torch.from_numpy(layout.slot_off).to(dev)
-    slot = slot_off[tile] + seg_ids.to(torch.int64) - bases[tile]
+    slot = slot_off[run] + seg_ids.to(torch.int64) - run_base[run]
     slots = layout.n_slots
 
     def masked(mode):
@@ -230,11 +281,13 @@ def _check_args(values, valid, seg_ids):
 class StagePlan:
     """Byte layout of one K1 call's device buffer: the staged inputs
     first (`in_bytes`, what the one host-to-device copy carries), then
-    the tile partials (device only), then the results [out_lo, out_hi)
+    the block partials (device only), then the results [out_lo, out_hi)
     (what the one device-to-host copy carries). Each region is 16-byte
-    aligned: name → (offset, element count, numpy dtype)."""
+    aligned: name → (offset, element count, numpy dtype). `span_max` is
+    the widest run, which sizes the kernel's shared-memory windows."""
 
     n_rows: int
+    span_max: int
     regions: dict
     in_bytes: int
     out_lo: int
@@ -246,7 +299,7 @@ class StagePlan:
 
     @functools.cached_property
     def offsets(self):
-        """The kernel's 16 pointer regions' byte offsets, in its argument
+        """The kernel's 17 pointer regions' byte offsets, in its argument
         order, as the int64 array the one-call C entry takes."""
         return (ctypes.c_int64 * len(_KERNEL_REGIONS))(
             *(self.regions.get(k, (0,))[0] for k in _KERNEL_REGIONS))
@@ -254,9 +307,11 @@ class StagePlan:
 
 _ALIGN = 16
 _OUTS = ("count", "sum", "min", "max")
-_KERNEL_REGIONS = ("values", "valid", "seg_ids", "bases", "slot_off",
-                   "fold_pos", "seg_start", "arrivals", "p_cnt", "p_sum",
-                   "p_min", "p_max", *_OUTS)
+_KERNEL_REGIONS = ("values", "valid", "seg_ids", "run_tile", "run_base",
+                   "slot_off", "fold_pos", "seg_start", "arrivals", "p_cnt",
+                   "p_sum", "p_min", "p_max", *_OUTS)
+_LAYOUT_REGIONS = ("run_tile", "run_base", "slot_off", "fold_pos",
+                   "seg_start")
 
 
 def stage_plan(n: int, layout: WindowLayout, num_segments: int,
@@ -264,19 +319,19 @@ def stage_plan(n: int, layout: WindowLayout, num_segments: int,
     """Where each array of one K1 call lives in its buffers; `rows`
     stages values, segment ids and valid flags too (else they are device
     tensors already)."""
-    return _plan(n, len(layout.bases), layout.n_slots, num_segments,
-                 np.dtype(dtype), rows)
+    return _plan(n, layout.n_runs, layout.n_slots, layout.span_max,
+                 num_segments, np.dtype(dtype), rows)
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(n: int, tiles: int, slots: int, ns: int, dt: np.dtype,
-          rows: bool) -> StagePlan:
+def _plan(n: int, runs: int, slots: int, span_max: int, ns: int,
+          dt: np.dtype, rows: bool) -> StagePlan:
     i32, i64, i8 = np.dtype(np.int32), np.dtype(np.int64), np.dtype(np.int8)
     parts = ([("values", n, dt), ("seg_ids", n, i32), ("valid", n, i8)]
              if rows else [])
-    parts += [("bases", tiles, i32), ("slot_off", tiles + 1, i64),
-              ("fold_pos", slots, i32), ("seg_start", ns + 1, i64),
-              ("arrivals", ns, i32)]
+    parts += [("run_tile", runs + 1, i32), ("run_base", runs, i32),
+              ("slot_off", runs + 1, i64), ("fold_pos", slots, i32),
+              ("seg_start", ns + 1, i64), ("arrivals", ns, i32)]
     n_in = len(parts)
     parts += [("p_cnt", slots, i32), ("p_sum", slots, dt),
               ("p_min", slots, dt), ("p_max", slots, dt)]
@@ -289,8 +344,8 @@ def _plan(n: int, tiles: int, slots: int, ns: int, dt: np.dtype,
             marks.append(off)
         regions[name] = (off, count, d)
         off += -(-count * d.itemsize // _ALIGN) * _ALIGN
-    return StagePlan(n, regions, in_bytes=marks[0], out_lo=marks[1],
-                     out_hi=off)
+    return StagePlan(n, span_max, regions, in_bytes=marks[0],
+                     out_lo=marks[1], out_hi=off)
 
 
 def region(buf, plan: StagePlan, name: str):
@@ -317,17 +372,16 @@ def pack(buf: np.ndarray, plan: StagePlan, layout: WindowLayout,
         np.copyto(region(buf, plan, "values"), values)
         np.copyto(region(buf, plan, "seg_ids"), seg_ids, casting="same_kind")
         np.copyto(region(buf, plan, "valid"), valid, casting="unsafe")
-    np.copyto(region(buf, plan, "bases"), layout.bases)
-    np.copyto(region(buf, plan, "slot_off"), layout.slot_off)
-    np.copyto(region(buf, plan, "fold_pos"), layout.fold_pos)
-    np.copyto(region(buf, plan, "seg_start"), layout.seg_start)
+    for k in _LAYOUT_REGIONS:
+        np.copyto(region(buf, plan, k), getattr(layout, k))
     region(buf, plan, "arrivals")[:] = 0
 
 
 def staged_layout(buf, plan: StagePlan) -> WindowLayout:
-    """The layout as it sits in a packed numpy buffer (views)."""
-    return WindowLayout(*(region(buf, plan, k) for k in
-                          ("bases", "slot_off", "fold_pos", "seg_start")))
+    """The layout as it sits in a packed numpy buffer (views; the tile
+    bases are not staged)."""
+    return WindowLayout(None, *(region(buf, plan, k)
+                                for k in _LAYOUT_REGIONS))
 
 
 def window_partials(values, valid, seg_ids, layout: WindowLayout,
@@ -337,7 +391,7 @@ def window_partials(values, valid, seg_ids, layout: WindowLayout,
     tensor runs the plain version; a CUDA tensor launches the kernel,
     staging the layout with one host-to-device copy."""
     _check_args(values, valid, seg_ids)
-    if len(layout.bases) != -(-values.shape[0] // R_TILE) \
+    if int(layout.run_tile[-1]) != -(-values.shape[0] // R_TILE) \
             or len(layout.seg_start) != num_segments + 1:
         raise ValueError("layout does not match the rows or segments")
     if values.device.type == "cpu":
@@ -480,8 +534,9 @@ def _run_staged(dev, plan: StagePlan, f64: bool, fill, rows, fetch: bool):
         rc = fn(slot.stage.data_ptr(), buf.data_ptr(), plan.in_bytes,
                 slot.results.data_ptr() if fetch else None, plan.out_lo,
                 n_out if fetch else 0, plan.offsets, rows, plan.n_rows,
-                plan.regions["bases"][1], plan.regions["count"][1],
-                slot.done.cuda_event, cuda_build.current_stream(dev))
+                plan.regions["run_base"][1], plan.regions["count"][1],
+                plan.span_max, slot.done.cuda_event,
+                cuda_build.current_stream(dev))
         cuda_build.check(lib, rc, "segment_window (K1)")
         shape = (plan.n_rows, plan.regions["count"][1],
                  "torch.float64" if f64 else "torch.int64")
@@ -511,7 +566,8 @@ def _bind(buf: torch.Tensor, plan: StagePlan, values: int, valid: int,
     at = [base + plan.regions[k][0] for k in _KERNEL_REGIONS[3:]]
     vec = values % 16 == 0 and seg_ids % 16 == 0 and valid % 8 == 0
     return (values, valid, seg_ids, *at, plan.n_rows,
-            plan.regions["bases"][1], plan.regions["count"][1], int(vec))
+            plan.regions["run_base"][1], plan.regions["count"][1],
+            plan.span_max, int(vec))
 
 
 def _launch(dev, dtype: torch.dtype, args: tuple) -> None:
@@ -524,7 +580,7 @@ def _launch(dev, dtype: torch.dtype, args: tuple) -> None:
           else lib.segment_window_i64)
     rc = fn(*args, cuda_build.current_stream(dev))
     cuda_build.check(lib, rc, "segment_window (K1)")
-    shape = (args[16], args[18], str(dtype))
+    shape = (args[17], args[19], str(dtype))
     with _lock:
         launches += 1
         launch_shapes[shape] = launch_shapes.get(shape, 0) + 1
@@ -619,22 +675,53 @@ def _run_card(dev, values, valid, seg_ids, num_segments: int
     values = np.ascontiguousarray(values)
     valid = np.ascontiguousarray(valid if valid.itemsize == 1
                                  else valid.astype(np.int8))
-    tiles = -(-n // R_TILE)
-    bases = np.empty(tiles, dtype=np.int32)
-    slot_off = np.empty(tiles + 1, dtype=np.int64)
-    slots = lib.segment_window_bounds(seg.ctypes.data, n, num_segments,
-                                      W_WIN, bases.ctypes.data,
-                                      slot_off.ctypes.data)
-    if slots == -1:
+    seg_ptr = seg.ctypes.data
+    runs, buf, at, regions = _host_bounds(lib, seg_ptr, n, num_segments)
+    if runs < 0:
         return None
-    if slots < 0:
-        raise ValueError(f"segment ids outside [0, {num_segments})")
     _check_values(values)
-    plan = _plan(n, tiles, slots, num_segments, values.dtype, True)
+    slots, span_max = struct.unpack_from("<qq", buf, regions["stats"][0])
+    plan = _plan(n, runs, slots, span_max, num_segments, values.dtype, True)
+    rows = (values.ctypes.data, valid.ctypes.data, seg_ptr)
+    runs_at = [at + regions[k][0]
+               for k in ("run_tile", "run_base", "slot_off")]
     return _run_staged(
         dev, plan, values.dtype == np.float64,
         lambda stage: lib.segment_window_pack(
-            stage.ctypes.data, plan.offsets, values.ctypes.data,
-            valid.ctypes.data, seg.ctypes.data, n, bases.ctypes.data,
-            slot_off.ctypes.data, tiles, num_segments),
+            stage.ctypes.data, plan.offsets, *rows, n, *runs_at, runs,
+            num_segments),
         None, fetch=True)
+
+
+@functools.lru_cache(maxsize=256)
+def _host_regions(tiles: int) -> tuple:
+    """Where the library's host half writes one call's layout: name →
+    (offset, element count, numpy dtype) in one host buffer, and its
+    size."""
+    i32, i64 = np.dtype(np.int32), np.dtype(np.int64)
+    regions, off = {}, 0
+    for name, count, d in (("slot_off", tiles + 1, i64), ("stats", 2, i64),
+                           ("bases", tiles, i32), ("run_tile", tiles + 1, i32),
+                           ("run_base", tiles, i32)):
+        regions[name] = (off, count, d)
+        off += -(-count * d.itemsize // _ALIGN) * _ALIGN
+    return regions, off
+
+
+def _host_bounds(lib, seg_ptr: int, n: int, num_segments: int) -> tuple:
+    """The library's host half over n contiguous int32 segment ids at
+    seg_ptr → (run count, -1 when the layout declines; the host buffer;
+    its address; its regions). The arrays share one buffer, so the call
+    takes one numpy pointer lookup: each costs microseconds, which the
+    main path's few-thousand-row calls feel. Raises on ids outside
+    [0, num_segments)."""
+    regions, size = _host_regions(-(-n // R_TILE))
+    buf = np.empty(size, dtype=np.uint8)
+    at = buf.ctypes.data
+    runs = lib.segment_window_bounds(
+        seg_ptr, n, num_segments, W_WIN, TILES_PER_RUN,
+        *(at + regions[k][0] for k in ("bases", "run_tile", "run_base",
+                                       "slot_off", "stats")))
+    if runs < -1:
+        raise ValueError(f"segment ids outside [0, {num_segments})")
+    return runs, buf, at, regions

@@ -34,19 +34,25 @@ def _bits(t):
     return t.view(torch.int64) if t.dtype == torch.float64 else t
 
 
-def _layout_case(seed, n, ns_per_series, n_series, dtype, nan, null_frac):
+def _layout_case(seed, n, ns_per_series, n_series, dtype, nan, null_frac,
+                 scattered=False):
     """Series-contiguous rows with ascending buckets per series (seg =
     group × buckets + bucket). Small cases shuffle the group order, as
     tests/test_pallas_kernels.py does; large ones number groups in series
     order, as the scan's tag grouping does, so tiles that straddle two
-    series stay inside the window."""
+    series stay inside the window. `scattered`: one series whose bucket
+    is drawn anew for every row (the hits table grouped by a field), so
+    every tile covers every segment."""
     rng = np.random.default_rng(seed)
     per = -(-n // n_series)
     groups = (rng.permutation(n_series) if n < 10_000
               else np.arange(n_series))
-    seg = np.concatenate([
-        g * ns_per_series + np.sort(rng.integers(0, ns_per_series, per))
-        for g in groups])[:n].astype(np.int32)
+    if scattered:
+        seg = rng.integers(0, ns_per_series, n).astype(np.int32)
+    else:
+        seg = np.concatenate([
+            g * ns_per_series + np.sort(rng.integers(0, ns_per_series, per))
+            for g in groups])[:n].astype(np.int32)
     if dtype == "float64":
         vals = rng.normal(size=n)
         if nan:
@@ -70,10 +76,20 @@ CASES = [
     (200_000, 300, 100, "float64", True, 0.1),
     (200_000, 1500, 10, "int64", False, 0.0),
     (20_000, 7000, 20, "int64", False, 0.0),    # tile spans up to 2033
+    # segment ids drawn anew for every row: each segment takes a partial
+    # from every block run, and the completing block folds them
+    (4_500_000, 62, 1, "int64", False, 0.1, True),     # the hits shape
+    (4_500_000, 62, 1, "float64", True, 0.2, True),
+    (200_000, 2000, 1, "float64", True, 0.1, True),    # runs span ~2000
+    (200_000, 2000, 1, "int64", False, 0.0, True),
 ]
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[3]}")
+def _case_id(c):
+    return f"{c[0]}-{c[3]}" + ("-scattered" if c[6:] else "")
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_k1_kernel_matches_plain(dev, case):
     vals, valid, seg, ns = _layout_case(7, *case)
     layout = pk.window_layout(seg, ns)
@@ -220,11 +236,11 @@ def test_k1_host_wrapper_from_eight_threads(dev, monkeypatch):
                     err_msg=f"{k} not bit-stable")
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[3]}")
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_k1_host_layout_matches_window_layout(dev, case):
-    """The library's host half (tile bounds, then the packed staging
-    regions: rows, layout, fold places, seg_start, zeroed counters) is
-    byte for byte what window_layout and pack give."""
+    """The library's host half (tile bounds and block runs, then the
+    packed staging regions: rows, runs, fold places, seg_start, zeroed
+    counters) is byte for byte what window_layout and pack give."""
     from cnosdb_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library("segment_window")
@@ -232,22 +248,28 @@ def test_k1_host_layout_matches_window_layout(dev, case):
     vals = vals.astype(np.float64)
     layout = pk.window_layout(seg, ns)
     n = len(seg)
-    tiles = -(-n // pk.R_TILE)
-    bases = np.empty(tiles, dtype=np.int32)
-    slot_off = np.empty(tiles + 1, dtype=np.int64)
-    slots = lib.segment_window_bounds(seg.ctypes.data, n, ns, pk.W_WIN,
-                                      bases.ctypes.data, slot_off.ctypes.data)
-    assert slots == layout.n_slots
+    runs, buf, _at, regions = pk._host_bounds(lib, seg.ctypes.data, n, ns)
+    assert runs == layout.n_runs
+    host = {}
+    for k, count in (("bases", -(-n // pk.R_TILE)), ("run_tile", runs + 1),
+                     ("run_base", runs), ("slot_off", runs + 1),
+                     ("stats", 2)):
+        off, _count, d = regions[k]
+        host[k] = buf[off:off + count * d.itemsize].view(d)
+    for k in ("bases", "run_tile", "run_base", "slot_off"):
+        np.testing.assert_array_equal(host[k], getattr(layout, k), err_msg=k)
+    assert list(host["stats"]) == [layout.n_slots, layout.span_max]
     plan = pk.stage_plan(n, layout, ns, vals.dtype, rows=True)
     want = np.zeros(plan.in_bytes, dtype=np.uint8)
     pk.pack(want, plan, layout, (vals, valid, seg))
     got = np.full(plan.in_bytes, 0xAB, dtype=np.uint8)
     lib.segment_window_pack(got.ctypes.data, plan.offsets, vals.ctypes.data,
                             valid.ctypes.data, seg.ctypes.data, n,
-                            bases.ctypes.data, slot_off.ctypes.data, tiles,
-                            ns)
-    for k in ("values", "valid", "seg_ids", "bases", "slot_off", "fold_pos",
-              "seg_start", "arrivals"):
+                            host["run_tile"].ctypes.data,
+                            host["run_base"].ctypes.data,
+                            host["slot_off"].ctypes.data, layout.n_runs, ns)
+    for k in ("values", "valid", "seg_ids", "run_tile", "run_base",
+              "slot_off", "fold_pos", "seg_start", "arrivals"):
         np.testing.assert_array_equal(pk.region(got, plan, k),
                                       pk.region(want, plan, k), err_msg=k)
 

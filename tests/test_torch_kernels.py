@@ -91,12 +91,36 @@ CASES = {
                                  null_frac=0.4),
     "int64": dict(n_series=3, rows=400, buckets=16, dtype=np.int64,
                   null_frac=0.2),
+    # the hits shape: a group key drawn anew for every row, so every tile
+    # covers every segment and each segment takes several block runs
+    "scattered_f64": dict(scattered=True, rows=40_000, buckets=62,
+                          null_frac=0.2),
+    "scattered_int64": dict(scattered=True, rows=40_000, buckets=62,
+                            dtype=np.int64, null_frac=0.1),
+    # ~128 segments a tile: the run's union span reaches W_WIN after
+    # about 16 tiles, well before TILES_PER_RUN
+    "span_breaks_run": dict(n_series=1, rows=40_000, buckets=20_000,
+                            null_frac=0.1),
 }
+
+
+def _scattered(rng, n, ns, dtype, null_frac):
+    """Segment ids drawn anew for every row; NaN and inf (floats) or the
+    int64 extremes, and NULLs."""
+    seg_ids = rng.integers(0, ns, n).astype(np.int32)
+    if np.issubdtype(dtype, np.floating):
+        values = _special_floats(rng, n)
+    else:
+        values = _int64_extremes(rng, n)
+    return values, rng.random(n) >= null_frac, seg_ids, ns
 
 
 def _case(name):
     c = dict(CASES[name])
     rng = np.random.default_rng(sorted(CASES).index(name))
+    if c.get("scattered"):
+        return _scattered(rng, c["rows"], c["buckets"],
+                          c.get("dtype", np.float64), c["null_frac"])
     return _series_layout(rng, c["n_series"], c["rows"], c["buckets"],
                           dtype=c.get("dtype", np.float64),
                           null_frac=c.get("null_frac", 0.0))
@@ -120,9 +144,12 @@ def test_k1_plain_matches_pallas_interpret(name):
 def test_k1_staging_round_trips_and_counts_arrivals(name):
     """The Python half of K1's one-copy wrapper: every input packs into
     its own aligned region of one staging buffer and reads back exactly;
-    each segment's arrival target is the number of tiles whose window
-    (the JAX package's `applicable` base up to the tile's top segment)
-    covers it; and the staged call agrees with the Pallas kernel."""
+    the tiles form greedy block runs (at most TILES_PER_RUN tiles, a
+    union span within W_WIN, broken only where the next tile would
+    overflow it); each segment's arrival target is the number of runs
+    whose window (the lowest of its tiles' `applicable` bases up to their
+    top segment) covers it; and the staged call agrees with the Pallas
+    kernel."""
     values, valid, seg_ids, ns = _case(name)
     layout = tpk.window_layout(seg_ids, ns)
     plan = tpk.stage_plan(len(values), layout, ns, values.dtype, rows=True)
@@ -142,16 +169,31 @@ def test_k1_staging_round_trips_and_counts_arrivals(name):
                                   valid.astype(np.int8))
     np.testing.assert_array_equal(tpk.region(buf, plan, "seg_ids"), seg_ids)
     staged = tpk.staged_layout(buf, plan)
-    for k in ("bases", "slot_off", "fold_pos", "seg_start"):
+    for k in ("run_tile", "run_base", "slot_off", "fold_pos", "seg_start"):
         np.testing.assert_array_equal(getattr(staged, k),
                                       getattr(layout, k), err_msg=k)
     assert not tpk.region(buf, plan, "arrivals").any()
+    bases = jpk.applicable(seg_ids)
+    tiles = len(bases)
+    tops = np.array([int(seg_ids[t * tpk.R_TILE:(t + 1) * tpk.R_TILE].max())
+                     for t in range(tiles)])
+    run_tile = layout.run_tile
+    assert run_tile[0] == 0 and run_tile[-1] == tiles
     want = np.zeros(ns, dtype=np.int64)
-    for t, base in enumerate(jpk.applicable(seg_ids)):
-        top = int(seg_ids[t * tpk.R_TILE:(t + 1) * tpk.R_TILE].max())
-        want[base:top + 1] += 1
-    # the kernel folds a segment when its arrivals reach this target
+    for r in range(layout.n_runs):
+        a, b = int(run_tile[r]), int(run_tile[r + 1])
+        lo, hi = int(bases[a:b].min()), int(tops[a:b].max())
+        assert 0 < b - a <= tpk.TILES_PER_RUN and hi - lo < tpk.W_WIN
+        if b < tiles and b - a < tpk.TILES_PER_RUN:
+            assert max(hi, tops[b]) - min(lo, bases[b]) >= tpk.W_WIN
+        assert layout.run_base[r] == lo
+        assert layout.slot_off[r + 1] - layout.slot_off[r] == hi - lo + 1
+        want[lo:hi + 1] += 1
+    # the kernel folds a segment when its arrivals reach this target:
+    # one arrival per (block run, covered segment), not per tile
     np.testing.assert_array_equal(np.diff(layout.seg_start), want)
+    assert layout.n_runs == -(-tiles // tpk.TILES_PER_RUN) \
+        or name == "span_breaks_run"
     got = tpk.segment_partials_pallas(values, valid, seg_ids, ns,
                                       wants=dict(ALL4))
     _assert_same(got, _jax_k1(values, valid, seg_ids, ns), ns)
@@ -211,6 +253,20 @@ def test_k1_declines_wide_span_and_first_last():
     after = tpk.declines()
     assert after.get("wide_span", 0) == before.get("wide_span", 0) + 1
     assert after.get("first_last", 0) == before.get("first_last", 0) + 1
+
+
+def test_k1_block_runs_break_on_union_span():
+    """~128 segments a tile: every block run stops where the next tile
+    would widen its union span past W_WIN, short of TILES_PER_RUN tiles,
+    and the result still matches the Pallas kernel."""
+    values, valid, seg_ids, ns = _case("span_breaks_run")
+    layout = tpk.window_layout(seg_ids, ns)
+    lengths = np.diff(layout.run_tile)
+    assert len(lengths) > 1 and (lengths[:-1] < tpk.TILES_PER_RUN).all()
+    assert layout.span_max <= tpk.W_WIN
+    got = tpk.segment_partials_pallas(values, valid, seg_ids, ns,
+                                      wants=dict(ALL4))
+    _assert_same(got, _jax_k1(values, valid, seg_ids, ns), ns)
 
 
 def test_k1_layout_bases_match_jax_applicable():
