@@ -62,8 +62,11 @@ Phases, in order:
      count/sum/min/max/first/last against the numpy oracle; a seeded
      device_loss nemesis on nodes whose mesh lane engages (answers
      byte-identical, the decline booked, the lane re-engaged after heal);
-     a SIGKILL and restart of one node, whose first read decodes its own
-     files on the device lane (K2); recorded clients writing and reading
+     a SIGKILL and restart of one node, read as it comes back with no
+     flush or compaction first: its first read decodes its own files on
+     the device lane (K2) with no memcache-overlap page, rounds of reads
+     during its catch-up all answer and hold to the oracle, and its
+     memory cache stays under 1 MB; recorded clients writing and reading
      throughout, judged by the history checker on every node; the CLI
      against HTTP and its --dump-ddl replayed; then the crash sweep over
      chaos.sweep.FAST_POINTS with its workload subprocesses on the card;
@@ -1634,9 +1637,17 @@ def compare_x4(run: dict, a: dict, seed: int, dev) -> list:
 # (CNOSDB_FAULTS), the serving tier's caches off so every query reaches
 # the operators, and the mesh lane allowed on one card.
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+# CNOSDB_LOCKWATCH: the nodes record their lock-order graph and longest
+# holds, which /debug/lockgraph serves when a raft wait times out
 CLUSTER_ENV = {"CNOSDB_FAULTS": "seed=1", "CNOSDB_SERVING": "0",
-               "CNOSDB_MESH_MIN_DEVICES": "1"}
+               "CNOSDB_MESH_MIN_DEVICES": "1", "CNOSDB_LOCKWATCH": "1"}
 NEMESIS_SEED = 23
+# a node's scan RPCs to its peers fail: every split fails over to its own
+# replica, whatever raft leadership and the hedges would route
+SCANS_LOCAL = "rpc.send:fail:if=scan_vnode"
+# the restarted node's memory cache after catch-up: only the dcw rows
+# written while it was down belong there
+MEMCACHE_LIMIT = 1 << 20
 LP_BATCH = 10_000
 # the write errors of an entry raft did not commit (the leader changed
 # under it): the write was not acked, and a client sends it again
@@ -1935,6 +1946,17 @@ def wait_keys(node, want: set, timeout: float = 60.0) -> set:
         time.sleep(0.3)
 
 
+def dump_nodes(nodes, why: str) -> None:
+    """Print every node's /debug/backtrace and /debug/lockgraph."""
+    for n in nodes:
+        for what in ("backtrace", "lockgraph"):
+            try:
+                text = n.http("GET", f"/debug/{what}", timeout=30.0)
+            except (AssertionError, OSError) as e:
+                text = f"unavailable: {e}"
+            log(f"# {why}: node {n.node_id} /debug/{what}:\n{text}")
+
+
 def wait_leaders(cluster, groups: dict, timeout: float = 120.0) -> None:
     """Until every replica set of each database (owner → shard count)
     has elected a leader, as the nodes' /debug/health reports it."""
@@ -1943,6 +1965,7 @@ def wait_leaders(cluster, groups: dict, timeout: float = 120.0) -> None:
     deadline = time.monotonic() + timeout
     while True:
         led: dict = {}
+        views: dict = {}
         for n in cluster.nodes:
             members = _json.loads(n.http("GET", "/debug/health"))[
                 "raft_members"]
@@ -1951,11 +1974,17 @@ def wait_leaders(cluster, groups: dict, timeout: float = 120.0) -> None:
                 gid = rest.split("#")[0]
                 led.setdefault(owner, {}).setdefault(gid, False)
                 led[owner][gid] |= m["role"] == "leader"
+                views.setdefault((owner, gid), {})[n.node_id] = m
         if all(len(led.get(o, {})) == k and all(led[o].values())
                for o, k in groups.items()):
             return
         if time.monotonic() > deadline:
-            raise AssertionError(f"replica sets without a leader: {led}")
+            dump_nodes(cluster.nodes, "wait_leaders timed out")
+            leaderless = {f"{o}/{g}": views[(o, g)]
+                          for o, gs in led.items() for g, ok in gs.items()
+                          if not ok}
+            raise AssertionError(f"replica sets without a leader: {led}; "
+                                 f"their members by node: {leaderless}")
         time.sleep(0.2)
 
 
@@ -1973,28 +2002,39 @@ def local_answers(node, data: Data):
     return out
 
 
+def raft_state(node, owners) -> dict:
+    """The node's raft members of the databases `owners` → (log, commit,
+    applied)."""
+    import json as _json
+
+    members = _json.loads(node.http("GET", "/debug/health"))["raft_members"]
+    return {k: (m["last_index"], m["commit"], m["applied"])
+            for k, m in members.items() if k.split("/")[0] in owners}
+
+
+def caught_up(state: dict) -> bool:
+    return bool(state) and all(last == commit == applied
+                               for last, commit, applied in state.values())
+
+
 def wait_caught_up(node, owners, peers=(), timeout: float = 180.0) -> float:
     """Until every raft member of the databases `owners` on the node has
     applied its whole log, and the logs stood still for one poll: a
     restarted follower takes entries from its leaders for a while after
     it answers pings. On a timeout the error shows the lagging groups'
     members on the node and on `peers` (role, term, leader, log,
-    commit, applied). → seconds waited."""
+    commit, applied), after every node's thread stacks and lock graph.
+    → seconds waited."""
     import json as _json
 
     t0 = time.monotonic()
     prev = None
     while True:
-        members = _json.loads(node.http("GET", "/debug/health"))[
-            "raft_members"]
-        state = {k: (m["last_index"], m["commit"], m["applied"])
-                 for k, m in members.items()
-                 if k.split("/")[0] in owners}
-        if state and state == prev and all(
-                last == commit == applied
-                for last, commit, applied in state.values()):
+        state = raft_state(node, owners)
+        if state == prev and caught_up(state):
             return time.monotonic() - t0
         if time.monotonic() - t0 > timeout:
+            dump_nodes((node, *peers), "wait_caught_up timed out")
             lagging = {k.split("#")[0] for k, (last, commit, applied)
                        in state.items() if not last == commit == applied}
             views = {n.node_id: {
@@ -2006,6 +2046,17 @@ def wait_caught_up(node, owners, peers=(), timeout: float = 180.0) -> float:
                                  f"by node: {views}")
         prev = state
         time.sleep(0.5)
+
+
+def scans_local(node, on: bool) -> None:
+    """Arm SCANS_LOCAL on the node (or clear its faults): with it, its
+    scans stay on its own replicas whatever raft leadership and the
+    hedges would route."""
+    from cnosdb_tpu_torch.parallel.net import rpc_call
+
+    spec = f"seed={NEMESIS_SEED}" + (f";{SCANS_LOCAL}" if on else "")
+    rpc_call(f"127.0.0.1:{node.rpc_port}", "_faults", {"spec": spec},
+             timeout=5.0)
 
 
 def engaging_node(cluster, start: int, data: Data):
@@ -2178,7 +2229,9 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
             vspec, ospec = nemesis.event_specs(
                 ev, f"127.0.0.1:{victim.rpc_port}", NEMESIS_SEED)
             assert ospec == "", ospec
-            loss0 = victim.metric("cnosdb_mesh_total", reason="device_loss")
+            # scans local: a split that a moved raft leader took to a peer
+            # fails over to the victim's own replica, and the lane engages
+            vspec += ";" + SCANS_LOCAL
             off0 = victim.metric("cnosdb_mesh_total", reason="off_mesh")
             rpc_call(f"127.0.0.1:{victim.rpc_port}", "_faults",
                      {"spec": vspec}, timeout=5.0)
@@ -2253,34 +2306,50 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
         victim.start()
         victim.wait_ready()
         restart_s = time.perf_counter() - t
+        owners = ("cnosdb.tsbs", "cnosdb.dcw")
         # leader-follow routing sends a restarted follower's scans to the
         # replica leaders, whose caches are warm: fail its scan RPCs to
         # its peers, so that every split fails over to its own replica
-        # and its first read is its own cold scan
-        # the restart replays the raft log into the memory cache, rows
-        # flushed before the crash included, and a scan over rows that
-        # overlap a file decodes on the host: flush and compact them
-        # back into one file a vnode, as before the crash, so that the
-        # first read decodes its pages on the device lane
-        caught_up_s = wait_caught_up(victim, ("cnosdb.tsbs", "cnosdb.dcw"),
-                                     others)
-        mem = victim.metric("cnosdb_memory_pool_bytes", pool="memcache")
-        victim.sql("FLUSH")
-        victim.sql("COMPACT DATABASE tsbs")
-        vaddr = f"127.0.0.1:{victim.rpc_port}"
-        rpc_call(vaddr, "_faults", {"spec": f"seed={NEMESIS_SEED};"
-                                            "rpc.send:fail:if=scan_vnode"},
-                 timeout=5.0)
+        # and its first read is its own cold scan, as it comes back
+        scans_local(victim, True)
         try:
-            answers = {}
-            for name, q in CLUSTER_SQL.items():
-                answers[name] = victim.sql(q)
-                if name == "double_groupby_1":
-                    first_s = time.perf_counter() - t_kill
+            # catch-up: rounds of the three queries while raft brings the
+            # node's replicas up to date; tsbs did not change while the
+            # node was down, so every answer holds to the oracle
+            overlap0 = victim.metric("cnosdb_decode_fallback_total",
+                                     reason="memcache_overlap")
+            rounds, first_s, dd_first, behind = 0, None, None, 0
+            while True:
+                state = raft_state(victim, owners)
+                behind += not caught_up(state)
+                for name, q in CLUSTER_SQL.items():
+                    check_cluster_answer(name, victim.sql(q), data)
+                    if first_s is None:
+                        first_s = time.perf_counter() - t_kill
+                rounds += 1
+                if dd_first is None:
+                    dd_first = victim.metric("cnosdb_device_decode_total",
+                                             lane="device", reason="ok")
+                    overlap = victim.metric(
+                        "cnosdb_decode_fallback_total",
+                        reason="memcache_overlap") - overlap0
+                if (caught_up(state) and rounds >= 2) or rounds >= 20:
+                    break
+            if dd_first <= 0 or overlap:
+                raise AssertionError(
+                    f"node {victim.node_id}'s first read after the restart "
+                    f"decoded {dd_first} pages on the device lane and sent "
+                    f"{overlap} pages to the memcache-overlap host path")
+            caught_up_s = wait_caught_up(victim, owners, others)
+            mem = victim.metric("cnosdb_memory_pool_bytes", pool="memcache")
+            if mem >= MEMCACHE_LIMIT:
+                raise AssertionError(f"node {victim.node_id} holds {mem} B "
+                                     "in its memory cache after catch-up")
+            answers = {name: victim.sql(q)
+                       for name, q in CLUSTER_SQL.items()}
         finally:
-            rpc_call(vaddr, "_faults", {"spec": f"seed={NEMESIS_SEED}"},
-                     timeout=5.0)
-        # reading only its own replicas, the restarted node must give
+            scans_local(victim, False)
+        # reading only its own replicas, the caught-up node must give
         # the all-local answer, byte for byte
         for name, text in answers.items():
             check_cluster_answer(name, text, data)
@@ -2290,22 +2359,23 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
                     "differs from the all-local answer")
         dd = victim.metric("cnosdb_device_decode_total", lane="device",
                            reason="ok")
-        if dd <= 0:
-            raise AssertionError(f"node {victim.node_id}: the cold scan "
-                                 "after the restart decoded no page on "
-                                 "the device lane")
         for n in cluster.nodes:
             clients.read(n)
         out["restart_s"], out["crash_to_first_answer_s"] = restart_s, first_s
+        out["catch_up"] = {"rounds": rounds, "rounds_behind": behind,
+                           "caught_up_s": caught_up_s, "memcache_bytes": mem}
         log(f"# crash_restart node {victim.node_id}: SIGKILL, 15 writes "
-            f"through the other two, restarted in {restart_s:.2f}s, its "
-            f"replica sets caught up {caught_up_s:.2f}s later with "
-            f"{mem} B replayed into its memory cache (flushed and "
-            f"compacted), first "
-            f"answer {first_s:.2f}s after the kill, its reads on its own "
-            f"replicas (scan RPCs to its peers failed); answers oracle-"
-            f"checked and byte-identical to the all-local ones; device "
-            f"decode pages (lane device, ok) {dd} on its cold scan")
+            f"through the other two, restarted in {restart_s:.2f}s, first "
+            f"answer {first_s:.2f}s after the kill with no flush or "
+            f"compaction ({dd_first} pages decoded on the device lane, "
+            f"{overlap} sent to the memcache-overlap host path); "
+            f"{rounds} rounds of the 3 queries during catch-up "
+            f"({behind} with a replica behind), every answer HTTP 200 and "
+            f"oracle-checked; its replica sets caught up "
+            f"{caught_up_s:.2f}s after the rounds with {mem} B in its "
+            f"memory cache; its reads on its own replicas (scan RPCs to "
+            f"its peers failed), answers byte-identical to the all-local "
+            f"ones; device decode pages (lane device, ok) {dd}")
 
         # the client history against every node's final state
         clients.rec.close()

@@ -95,6 +95,7 @@ class Coordinator:
         self.distributed = not isinstance(meta, MetaStore)
         self.node_id = node_id if node_id is not None else meta.node_id
         self._replica_mgr = None  # built on first multi-replica write
+        self._replica_mgr_lock = lockwatch.Lock("coord.replica_mgr")
         # set by sql/matview.MatviewEngine; serves matview_partials RPCs
         self.matview_maintainer = None
         # ScanBatch snapshots keyed by vnode data_version: repeated queries
@@ -599,14 +600,23 @@ class Coordinator:
         return None
 
     def replica_manager(self):
-        if self._replica_mgr is None:
-            from .replica import ReplicaGroupManager
+        mgr = self._replica_mgr
+        if mgr is not None:
+            return mgr
+        # built once: a booting node's first raft messages arrive on
+        # several RPC threads at once, and a second manager would start a
+        # second raft member of each local vnode on the same WAL, unseen
+        # by /debug/health; one that won leadership left the registered
+        # member a follower with no leader and its group stuck
+        with self._replica_mgr_lock:
+            if self._replica_mgr is None:
+                from .replica import ReplicaGroupManager
 
-            self._replica_mgr = ReplicaGroupManager(
-                self.engine,
-                node_id=self.node_id if self.distributed else None,
-                meta=self.meta if self.distributed else None)
-        return self._replica_mgr
+                self._replica_mgr = ReplicaGroupManager(
+                    self.engine,
+                    node_id=self.node_id if self.distributed else None,
+                    meta=self.meta if self.distributed else None)
+            return self._replica_mgr
 
     def close(self):
         """Stop raft tickers BEFORE closing the engine — heartbeats append

@@ -200,6 +200,10 @@ class WalLogStore(LogStore):
     def entry_at(self, index):
         return self._entries.get(index)
 
+    def first_index(self) -> int:
+        """Index of the oldest entry held (0 when none)."""
+        return min(self._entries, default=0)
+
     def last_index(self):
         return self._last
 
@@ -412,9 +416,9 @@ class RaftNode:
         self._config_log: list[tuple[int, list[int]]] = []
         self.role = Role.FOLLOWER
         self.leader_id: int | None = None
-        # a state machine that persisted its apply watermark resumes there
-        # (replicated meta); 0 = replay the whole log (vnode SMs rebuild
-        # from their own WAL semantics)
+        # a state machine that persisted its apply watermark resumes there:
+        # replicated meta at its store's, a vnode member at its vnode's
+        # (replica._resume_index); 0 = replay the whole log
         self.commit_index = initial_applied
         self.last_applied = initial_applied
         self.next_index: dict[int, int] = {}
@@ -429,6 +433,13 @@ class RaftNode:
         self._election_deadline = self._new_deadline()
         self._stop = threading.Event()
         self._apply_cv = threading.Condition(self.lock)
+        # why a group elects or does not, for /debug/health: the ticker's
+        # last pass, the prevote rounds this member ran and their last
+        # tally, and the prevotes it refused, by reason
+        self._last_tick = time.monotonic()
+        self.elections = {"prevote_rounds": 0, "prevotes_won": 0,
+                          "last_prevote": None, "tick_errors": 0,
+                          "refused": {}}
         if hasattr(transport, "register"):
             transport.register(self)
         self._ticker = None
@@ -468,6 +479,7 @@ class RaftNode:
     def _tick_loop(self):
         while not self._stop.is_set():
             time.sleep(0.01)
+            self._last_tick = time.monotonic()
             if not self.alive:
                 continue
             try:
@@ -481,9 +493,12 @@ class RaftNode:
                     self._start_election()
             except Exception:
                 # a transient failure (e.g. races at shutdown) must not kill
-                # the ticker thread and silently dead-lock the group
+                # the ticker thread and silently dead-lock the group; it is
+                # counted, so one that repeats shows
                 if self._stop.is_set():
                     return
+                self.elections["tick_errors"] += 1
+                stages.count_error("swallow.raft.tick")
                 time.sleep(0.05)
 
     # ------------------------------------------------------------ elections
@@ -548,6 +563,10 @@ class RaftNode:
         with self.lock:
             if self.role != Role.CANDIDATE or self.term != term:
                 return
+            # a round that a silent peer made wait out its second has
+            # outlived the deadline drawn at its start: draw it again, or
+            # two candidates split the vote round after round in lockstep
+            self._election_deadline = self._new_deadline()
             if votes[0] * 2 > len(self.peers) + 1:
                 self.role = Role.LEADER
                 self.leader_id = self.node_id
@@ -605,7 +624,13 @@ class RaftNode:
         for t in threads:
             t.start()
         settled.wait(timeout=1.0)
-        return votes[0] * 2 > total
+        won = votes[0] * 2 > total
+        self.elections["prevote_rounds"] += 1
+        self.elections["prevotes_won"] += won
+        self.elections["last_prevote"] = {
+            "term": term, "granted": votes[0] - 1, "replied": replied[0],
+            "peers": len(self.peers), "last_log": [last_term, last_idx]}
+        return won
 
     def _on_request_prevote(self, msg):
         with self.lock:
@@ -626,6 +651,12 @@ class RaftNode:
                        and self.role != Role.LEADER
                        and not (heard_recently
                                 and self.role == Role.FOLLOWER))
+            if not granted:
+                why = ("term" if msg["term"] < self.term else
+                       "log" if not up_to_date else
+                       "leader" if self.role == Role.LEADER else "heard")
+                refused = self.elections["refused"]
+                refused[why] = refused.get(why, 0) + 1
             return {"term": self.term, "granted": granted}
 
     def _step_down(self, term: int):
@@ -1053,6 +1084,19 @@ class RaftNode:
                 "leader": self.leader_id, "commit": self.commit_index,
                 "applied": self.last_applied,
                 "last_log": self.log.last_index()}
+
+    def election_stats(self) -> dict:
+        """The ticker's age, whether another thread holds this member's
+        lock, and the prevote tallies (see __init__). Never waits for the
+        lock: a member stuck behind it is what this reads."""
+        out = dict(self.elections)
+        out["refused"] = dict(out["refused"])
+        out["tick_age_s"] = round(time.monotonic() - self._last_tick, 3)
+        free = self.lock.acquire(blocking=False)
+        if free:
+            self.lock.release()
+        out["lock_held"] = not free
+        return out
 
 
 class NotLeader(ReplicationError):

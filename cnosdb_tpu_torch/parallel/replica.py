@@ -40,6 +40,11 @@ class VnodeStateMachine(StateMachine):
         self.vnode = vnode
 
     def apply(self, entry: LogEntry):
+        if entry.term == 0 and entry.index <= self.vnode.applied_seq:
+            # an entry of the vnode's own (a write from before the set
+            # was replicated, or a local delete): the vnode applied it
+            # when it was written, or in its replay at open
+            return
         self.vnode.apply_entry(entry.entry_type, entry.data, entry.index)
 
     def snapshot(self) -> bytes:
@@ -51,6 +56,37 @@ class VnodeStateMachine(StateMachine):
     def install_snapshot(self, data: bytes, last_index: int, last_term: int):
         snap = msgpack.unpackb(data, raw=False, strict_map_key=False)
         self.vnode.install_file_snapshot(snap)
+        self.vnode.raft_seq = last_index
+
+
+def _resume_index(vnode: VnodeStorage, log: WalLogStore) -> int:
+    """The raft index a vnode's member starts from (its commit and applied
+    index): what the vnode already reflects, its flushed watermark raised
+    by the replicated entries applied since. A log that starts past it
+    (a snapshot install replaced the entries before its index) resumes
+    before its first entry: the snapshot's files hold what came before."""
+    first = log.first_index()
+    return max(vnode.raft_seq, first - 1 if first else 0)
+
+
+def open_local_members(coord) -> int:
+    """Node boot, once the engine has reopened its vnodes: start the raft
+    member of every local vnode whose replica set has more than one
+    member, so that the entries its open left to raft apply as soon as a
+    leader confirms them, with no write or peer message needed first. A
+    vnode whose set has one member applies them itself. → members
+    started."""
+    n = 0
+    for (owner, vid), vnode in list(coord.engine.vnodes.items()):
+        hit = coord.meta.find_vnode(vid)
+        if hit is None or hit[0] != owner:
+            continue
+        rs = hit[2]
+        if len(rs.vnodes) > 1:
+            n += vid in coord.replica_manager().get_or_build(owner, rs)
+        else:
+            vnode.replay_raft_tail()
+    return n
 
 
 class ReplicaGroupManager:
@@ -141,6 +177,7 @@ class ReplicaGroupManager:
                                 VnodeStateMachine(vnode), self.transport,
                                 election_timeout=self.election_timeout,
                                 heartbeat_interval=self.heartbeat_interval,
+                                initial_applied=_resume_index(vnode, log),
                                 on_state=self._on_member_state)
                 self.multi.add(node)
                 nodes[v.id] = node

@@ -921,6 +921,7 @@ class HttpServer:
                     "last_index": node.log.last_index(),
                     "commit": node.commit_index,
                     "applied": node.last_applied,
+                    "elections": node.election_stats(),
                 }
         return web.json_response({
             "hedging_enabled": health.enabled(),
@@ -1292,6 +1293,8 @@ def build_server(data_dir: str, auth_enabled: bool = False,
     server.rs ServiceBuilder::build_query_storage)."""
     import os
 
+    from ..parallel.replica import open_local_members
+
     meta = MetaStore(os.path.join(data_dir, "meta", "meta.json"))
     engine = TsKv(os.path.join(data_dir, "db"), wal_sync=wal_sync)
     # coordinator BEFORE open_existing: its init hydrates the engine's
@@ -1299,6 +1302,9 @@ def build_server(data_dir: str, auth_enabled: bool = False,
     # replayed fields by column id across a pre-crash RENAME/DROP
     coord = Coordinator(meta, engine)
     engine.open_existing()
+    # replicated vnodes left their unflushed raft entries to raft: start
+    # their members now, not on the first write
+    open_local_members(coord)
     executor = QueryExecutor(meta, coord)
     executor.restore_streams()  # persisted streams resume at their watermark
     executor.restore_matviews()  # rollups resume flush-driven maintenance
@@ -1319,6 +1325,7 @@ def build_cluster_node(data_dir: str, meta_addr: str, node_id: int,
     from ..parallel.meta_service import MetaClient
     from ..parallel.net import wait_rpc_ready
     from ..parallel.node_service import DataNodeService
+    from ..parallel.replica import open_local_members
 
     wait_rpc_ready(meta_addr, timeout=30.0)
     meta = MetaClient(meta_addr, node_id=node_id)
@@ -1328,6 +1335,9 @@ def build_cluster_node(data_dir: str, meta_addr: str, node_id: int,
     node_svc = DataNodeService(coord, host=rpc_host, port=rpc_port).start()
     meta.register_node(node_id, grpc_addr=node_svc.addr)
     meta.start_heartbeat()
+    # replicated vnodes left their unflushed raft entries to raft: start
+    # their members now, not on a peer's first message
+    open_local_members(coord)
     executor = QueryExecutor(meta, coord)
     executor.restore_matviews()  # rollups resume flush-driven maintenance
     server = HttpServer(meta, coord, executor, auth_enabled=auth_enabled,

@@ -94,6 +94,31 @@ class SeriesData:
                 nd.field_chunks[name] = kept
         return nd
 
+    def prefix(self, max_seq: int) -> "SeriesData | None":
+        """→ a SeriesData holding only the chunks with seq <= max_seq
+        (None when there are none). A field chunk belongs to it iff its
+        row offset lies inside the timestamps kept, so a chunk that an
+        apply is appending meanwhile is never seen. Shares the chunk
+        lists' objects — callers must treat the result as read-only."""
+        import bisect
+
+        k = bisect.bisect_right(self.seq_chunks, max_seq)
+        if k == 0:
+            return None
+        nd = SeriesData(self.sid, self.table)
+        nd.ts_chunks = self.ts_chunks[:k]
+        nd.seq_chunks = self.seq_chunks[:k]
+        nd.n_rows = sum(len(c) for c in nd.ts_chunks)
+        # list(): an apply may add a field meanwhile; its chunks only grow
+        # at the end, so the ones past the rows kept are a tail
+        for name, chunks in list(self.field_chunks.items()):
+            j = len(chunks)
+            while j and chunks[j - 1][0] >= nd.n_rows:
+                j -= 1
+            if j:
+                nd.field_chunks[name] = chunks[:j]
+        return nd
+
     def materialize(self) -> tuple[np.ndarray, dict[str, tuple[ValueType, np.ndarray, np.ndarray]], np.ndarray]:
         """→ (sorted unique ts, {field: (vt, values, valid_mask)}, order)
 

@@ -74,9 +74,26 @@ def _time_mask(ts: np.ndarray, trs: TimeRanges) -> np.ndarray | None:
     return m
 
 
+def _mem_snapshot(vnode) -> tuple[list, int]:
+    """The memcaches a scan reads, oldest first, and the highest WAL seq
+    it may see in them: the vnode's applied watermark, taken under its
+    lock, where no apply is half done. Raft applies entries into these
+    caches while a scan reads them (a restarted replica catching up):
+    every chunk at or below the ceiling was whole when it was taken, and
+    every chunk appended since carries a higher seq. A DeltaVnodeView
+    took its ceiling when it was built."""
+    lock = getattr(vnode, "lock", None)
+    if lock is None:
+        return [*vnode.immutables, vnode.active], vnode.applied_seq
+    with lock:
+        return [*vnode.immutables, vnode.active], vnode.applied_seq
+
+
 def _series_parts(vnode: VnodeStorage, table: str, sid: int,
-                  field_names: list[str], trs: TimeRanges):
-    """Collect (ts, {field: (vt, vals, valid)}) parts in priority order."""
+                  field_names: list[str], trs: TimeRanges, mem):
+    """Collect (ts, {field: (vt, vals, valid)}) parts in priority order;
+    the memory caches' from the scan's _mem_snapshot `mem`."""
+    caches, ceiling = mem
     parts = []
     targets = _field_targets(vnode, table, field_names)
     version = vnode.summary.version
@@ -117,8 +134,10 @@ def _series_parts(vnode: VnodeStorage, table: str, sid: int,
                 fields[name] = (vt, vals, valid)
             parts.append(((ts[sel] if sel is not None else ts), fields))
     # memcaches: immutables old→new, then active
-    for cache in [*vnode.immutables, vnode.active]:
+    for cache in caches:
         sd = cache.series.get((table, sid))
+        if sd is not None:
+            sd = sd.prefix(ceiling)
         if sd is None:
             continue
         ts, mfields, _ = sd.materialize()
@@ -287,6 +306,10 @@ class DeltaVnodeView:
             _DeltaVersion(vnode.summary.version, new_fids))
         self.index = vnode.index
         self.schemas = vnode.schemas
+        # the ceiling before the suffix views: a chunk appended while
+        # they are built lies above it (see _mem_snapshot)
+        with vnode.lock:
+            self.applied_seq = vnode.applied_seq
         act = vnode.active.suffix_view(after_seq)
         self.active = act if act is not None \
             else MemCache(vnode.vnode_id)
@@ -472,13 +495,16 @@ def scan_vnode(vnode: VnodeStorage, table: str,
     coordinator keys its cache accordingly.
     """
     trs = time_ranges if time_ranges is not None else TimeRanges.all()
+    # before the file set is read: rows a flush moves into a file after
+    # this are then read twice (and deduplicated), never missed
+    mem = _mem_snapshot(vnode)
     if series_ids is None:
         file_sids = set()
         for fm in vnode.summary.version.all_files():
             r = vnode.summary.version.reader(fm)
             file_sids.update(int(s) for s in r.series_ids(table))
         series_ids = np.array(
-            sorted(file_sids | _mem_series_ids(vnode, table)),
+            sorted(file_sids | _mem_series_ids(mem, table)),
             dtype=np.uint64)
     if field_names is None:
         field_names = _discover_fields(vnode, table)
@@ -491,7 +517,7 @@ def scan_vnode(vnode: VnodeStorage, table: str,
         batch = _scan_vnode_native(vnode, table, series_ids, trs,
                                    field_names, page_constraints or {},
                                    n_threads, upload_hook, decode_hook,
-                                   compressed_spec)
+                                   compressed_spec, mem=mem)
         if batch is not None:
             return _charge_decoded(batch)
 
@@ -506,7 +532,7 @@ def scan_vnode(vnode: VnodeStorage, table: str,
         # series instead of materializing the rest of the vnode
         deadline_mod.check_current()
         sid = int(sid)
-        parts = _series_parts(vnode, table, sid, field_names, trs)
+        parts = _series_parts(vnode, table, sid, field_names, trs, mem)
         ts, fields = merge_parts(parts, field_names)
         if len(ts) == 0:
             continue
@@ -588,6 +614,8 @@ _NATIVE_ENC = {1: {6}, 2: {2, 11}, 3: {10}}   # kind → decodable encodings
 #   native_unavailable  no native library and the device lane declined
 #   cold_tier     page lives in the object store; the native mmap lane
 #                 cannot touch it (decodes via Python over the block cache)
+#   memcache_overlap  the series also has unflushed rows: its file pages
+#                 merge with them on the per-series Python path
 #   device_decode.*     device lane examined the page but declined
 #                       (reason suffix from codecs.split_for_device)
 import threading as _threading
@@ -615,11 +643,16 @@ def _count_cold_pruned(n: int) -> None:
     tiering._count_cold("prune", "pages_pruned", n)
 
 
-def _mem_series_ids(vnode: VnodeStorage, table: str) -> set:
-    """Series ids with unflushed rows for `table` (active + immutables)."""
-    sids = {sid for (t, sid) in vnode.active.series if t == table}
-    for c in vnode.immutables:
-        sids |= {sid for (t, sid) in c.series if t == table}
+def _mem_series_ids(mem, table: str) -> set:
+    """Series ids with unflushed rows for `table` (active + immutables)
+    that the scan's _mem_snapshot `mem` may see."""
+    caches, ceiling = mem
+    sids = set()
+    for c in caches:
+        # list(): raft may add a series while this reads
+        sids |= {sid for (t, sid), sd in list(c.series.items())
+                 if t == table and sd.seq_chunks
+                 and sd.seq_chunks[0] <= ceiling}
     return sids
 
 
@@ -813,7 +846,7 @@ def _scan_vnode_native(vnode: VnodeStorage, table: str,
                        n_threads: int,
                        upload_hook=None,
                        decode_hook=None,
-                       compressed_spec=None) -> ScanBatch | None:
+                       compressed_spec=None, *, mem) -> ScanBatch | None:
     from . import native
 
     dev_lane = decode_hook() if decode_hook is not None else None
@@ -834,7 +867,7 @@ def _scan_vnode_native(vnode: VnodeStorage, table: str,
                     TimeRange(fm.min_ts, fm.max_ts)):
                 continue
             files.append((fm, version.reader(fm)))
-    mem_sids = _mem_series_ids(vnode, table)
+    mem_sids = _mem_series_ids(mem, table)
     targets = _field_targets(vnode, table, field_names)
 
     # ---------------------------------------------------------------- plan
@@ -847,7 +880,7 @@ def _scan_vnode_native(vnode: VnodeStorage, table: str,
     for sid in series_ids:
         sid = int(sid)
         entry = _plan_series(vnode, table, sid, files, mem_sids, trs,
-                             constraints, field_names, targets)
+                             constraints, field_names, targets, mem)
         if entry is None:
             continue
         if entry[0] == "p":   # series pruned away entirely by constraints
@@ -1251,7 +1284,7 @@ def _scan_vnode_native(vnode: VnodeStorage, table: str,
 
 
 def _plan_series(vnode, table, sid, files, mem_sids, trs, constraints,
-                 field_names, targets):
+                 field_names, targets, mem):
     """→ ("n", sid, [(reader, chunk, cols, admitted idx)], n_rows, trim,
     pruned) | ("f", sid, ts, fields) | ("p",) (rows existed but every
     page was constraint-pruned) | None (no rows). `cols` maps QUERY
@@ -1259,6 +1292,11 @@ def _plan_series(vnode, table, sid, files, mem_sids, trs, constraints,
     _resolve_chunk_col), so constraint pruning and page decode stay
     correct across RENAME COLUMN."""
     fallback = sid in mem_sids
+    if fallback:
+        overlap = sum(len(cm.time_pages) for _fm, r in files
+                      if (cm := r.chunk(table, sid)) is not None)
+        if overlap:
+            _count_fallback("memcache_overlap", overlap)
     chunks = []
     if not fallback:
         version = vnode.summary.version
@@ -1288,7 +1326,7 @@ def _plan_series(vnode, table, sid, files, mem_sids, trs, constraints,
                 fallback = True   # misaligned pages (defensive)
                 break
     if fallback:
-        parts = _series_parts(vnode, table, sid, field_names, trs)
+        parts = _series_parts(vnode, table, sid, field_names, trs, mem)
         ts, fields = merge_parts(parts, field_names)
         if len(ts) == 0:
             return None
@@ -1350,7 +1388,8 @@ def _discover_fields(vnode: VnodeStorage, table: str) -> list[str]:
             for cm in g.chunks.values():
                 names.update(c.name for c in cm.columns)
     for cache in [vnode.active, *vnode.immutables]:
-        for (t, sid), sd in cache.series.items():
+        # list(): raft may add a series or a field while this reads
+        for (t, sid), sd in list(cache.series.items()):
             if t == table:
-                names.update(sd.field_chunks.keys())
+                names.update(list(sd.field_chunks))
     return sorted(names)

@@ -89,7 +89,13 @@ class VnodeStorage:
         # only visible at apply time — a scan token must describe what a
         # scan can see, not what the log stores (see scan_token()).
         self.applied_seq = self.summary.version.flushed_seq
-        self._replay_wal()
+        # highest raft log index reflected here: the flushed watermark,
+        # raised by every replicated entry applied since. A raft member
+        # of this vnode resumes from it (replica.py), so an entry is
+        # applied once across a restart
+        self.raft_seq = self.applied_seq
+        # whether the open left entries past the watermark to raft
+        self._raft_tail = self._replay_wal()
 
     def scan_token(self) -> ScanToken:
         """Capture the snapshot token for a scan ABOUT to run. Taken under
@@ -110,10 +116,31 @@ class VnodeStorage:
                 self.applied_seq)
 
     # ------------------------------------------------------------------ boot
-    def _replay_wal(self):
+    def _replay_wal(self) -> bool:
+        """Replay this vnode's own entries past the flushed watermark.
+        Entries with a raft term (>= 1) were appended by the replication
+        layer, and only raft knows which of them committed: the replay
+        stops at the first one and leaves it and the rest to the vnode's
+        raft member, which applies them as its commit index advances (or
+        to replay_raft_tail when the replica set has one member). → True
+        when it stopped so."""
         flushed = self.summary.version.flushed_seq
         for entry in self.wal.replay(from_seq=flushed + 1):
+            if entry.term:
+                return True
             self._apply_entry(entry.entry_type, entry.data, entry.seq, logged=True)
+        return False
+
+    def replay_raft_tail(self):
+        """Apply the WAL entries that the open left to raft, for a vnode
+        that no raft member drives (its replica set has one member)."""
+        with self.lock:
+            if not self._raft_tail:
+                return
+            for entry in self.wal.replay(from_seq=self.applied_seq + 1):
+                self._apply_entry(entry.entry_type, entry.data, entry.seq,
+                                  logged=True)
+            self._raft_tail = False
 
     # ------------------------------------------------------------------ write
     def write(self, batch: WriteBatch, sync: bool = False) -> int:
@@ -136,6 +163,8 @@ class VnodeStorage:
         is already durable in this vnode's WAL at `seq`."""
         with self.lock:
             self._apply_entry(entry_type, data, seq, logged=True)
+            if seq > self.raft_seq:
+                self.raft_seq = seq
 
     def _apply_entry(self, entry_type: int, data: bytes, seq: int, logged: bool):
         # advance even for no-op entries (blank/membership, empty deletes):

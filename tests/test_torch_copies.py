@@ -271,6 +271,20 @@ SUBS = {
         ('"cnosdb_tpu/', '"cnosdb_tpu_torch/'),
         ("~cnosdb_tpu.analysis.Rule", "~cnosdb_tpu_torch.analysis.Rule")],
     "analysis/interproc.py": _INTERPROC_SUBS,
+    # the replica manager's lazy build is guarded (see REWRITTEN)
+    "parallel/coordinator.py": [
+        ("        self._replica_mgr = None  # built on first multi-replica "
+         "write\n",
+         "        self._replica_mgr = None  # built on first multi-replica "
+         "write\n        self._replica_mgr_lock = lockwatch.Lock("
+         "\"coord.replica_mgr\")\n")],
+    # the fallback reason of a series whose memory rows overlap its file
+    "storage/scan.py": [
+        ("""#                 cannot touch it (decodes via Python over the block cache)
+""", """#                 cannot touch it (decodes via Python over the block cache)
+#   memcache_overlap  the series also has unflushed rows: its file pages
+#                 merge with them on the per-series Python path
+""")],
 }
 # per file: functions rewritten for the port (qualified names)
 REWRITTEN = {
@@ -281,8 +295,14 @@ REWRITTEN = {
                          "device_segment_reduce"},
     # no relay guard before the server starts
     "server/main.py": {"main"},
+    # the hooks raise; the replica manager is built once under a lock:
+    # concurrent raft messages at a node's boot built two, and the unseen
+    # second one's members took leadership of their groups while the
+    # registered members sat at commit 0 (a group leaderless for 180 s
+    # after a leader's SIGKILL on the card)
     "parallel/coordinator.py": {"Coordinator._upload_hook",
-                                "Coordinator._decode_hook"},
+                                "Coordinator._decode_hook",
+                                "Coordinator.replica_manager"},
     # the wire query id names its tracker: ids from 1 in every process
     # collided in peers' cancel tombstones (a restarted node's queries
     # were refused as cancelled)
@@ -294,6 +314,38 @@ REWRITTEN = {
     "analysis/interproc.py": {"_is_host_cast", "Project._is_device_call",
                               "Project._expr_device", "HostSync.check",
                               "project_rules"},
+    # a restarted replica: the vnode replays its own entries past the
+    # flushed watermark and leaves raft's to raft (an entry raft never
+    # committed was visible at open, and raft re-applied every entry
+    # from index 1: flushed rows back in the memory cache, entries past
+    # the flush applied twice); its raft member resumes from the
+    # watermark, and a node's boot starts the members of its replicated
+    # vnodes (their unflushed entries would otherwise wait for a write)
+    "storage/vnode.py": {"VnodeStorage.__init__", "VnodeStorage._replay_wal",
+                         "VnodeStorage.apply_entry"},
+    "parallel/replica.py": {"VnodeStateMachine.apply",
+                            "VnodeStateMachine.install_snapshot",
+                            "ReplicaGroupManager.get_or_build"},
+    "server/http.py": {"build_server", "build_cluster_node",
+                       "HttpServer.handle_health"},
+    # why a group elects or does not, on /debug/health: the ticker's age
+    # and swallowed errors, each prevote round's tally, and the prevotes
+    # a member refused, by reason (after a leader's SIGKILL a group
+    # stayed leaderless for 180 s on the card); a candidate draws its
+    # election deadline again after a round that outlived it, so two
+    # candidates waiting out a silent peer do not split votes in lockstep
+    "parallel/raft.py": {"RaftNode.__init__", "RaftNode._tick_loop",
+                         "RaftNode._start_election", "RaftNode._prevote",
+                         "RaftNode._on_request_prevote"},
+    # a scan reads the memory caches up to the applied watermark it took
+    # under the vnode lock (raft's apply during catch-up tore a series'
+    # timestamps from its fields: HTTP 500, "could not broadcast input
+    # array from shape (100,) into shape (0,)"), and books the series it
+    # sends to the per-series path for overlapping a file
+    "storage/scan.py": {"_series_parts", "DeltaVnodeView.__init__",
+                        "scan_vnode", "_mem_series_ids",
+                        "_scan_vnode_native", "_plan_series",
+                        "_discover_fields"},
 }
 # per file: functions and classes of the original that the port drops
 DROPPED = {
@@ -318,6 +370,15 @@ ADDED = {
                               "_host_placed", "torch_call_kind", "to_kind",
                               "Project._mark_kernel_calls",
                               "Project._makes_device_value", "rule_sites"},
+    # the replica restart: the tail an open leaves to raft, the index a
+    # member resumes from, the members a boot starts, the watermark a
+    # scan takes, and the part of a memory-cache series at or below it
+    "storage/vnode.py": {"VnodeStorage.replay_raft_tail"},
+    "parallel/raft.py": {"WalLogStore.first_index",
+                         "RaftNode.election_stats"},
+    "parallel/replica.py": {"_resume_index", "open_local_members"},
+    "storage/scan.py": {"_mem_snapshot"},
+    "storage/memcache.py": {"SeriesData.prefix"},
 }
 
 
