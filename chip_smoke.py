@@ -62,6 +62,13 @@ Phases, in order:
      count/sum/min/max/first/last against the numpy oracle; a seeded
      device_loss nemesis on nodes whose mesh lane engages (answers
      byte-identical, the decline booked, the lane re-engaged after heal);
+     a seeded symmetric partition around one node (all three answer, the
+     cut-off node from its own replicas, each answer against the oracle;
+     the other two take the clients' writes; after the heal the static
+     leaders' node engages its lane first with the all-local answers,
+     and the history checker is green on every node); no vnode marked
+     BROKEN in any node's view of meta after each heal and after the
+     restart;
      a SIGKILL and restart of one node, read as it comes back with no
      flush or compaction first: its first read decodes its own files on
      the device lane (K2) with no memcache-overlap page, rounds of reads
@@ -1720,6 +1727,20 @@ class ClusterNode(ServerProc):
             "--http-port", str(self.http_port),
             "--rpc-port", str(self.rpc_port)], env)
 
+    def kill(self) -> None:
+        """SIGKILL, and close the keep-alive connections this process
+        pooled to the node's RPC port: the node restarts on the same port,
+        and a request sent on a dead connection fails in its response
+        phase ("Remote end closed connection without response"), which
+        the RPC client never retries."""
+        from cnosdb_tpu_torch.parallel import net
+
+        super().kill()
+        with net._pool.lock:
+            dead = net._pool.idle.pop(f"127.0.0.1:{self.rpc_port}", [])
+        for conn, _ in dead:
+            conn.close()
+
     def http(self, method: str, path: str, body: bytes | None = None,
              timeout: float = 300.0) -> str:
         """The answer text; any status but 200 raises with the node's
@@ -2072,6 +2093,56 @@ def engaging_node(cluster, start: int, data: Data):
     return None, None
 
 
+def replica_sets(node, owners) -> list:
+    """The replica sets of the databases `owners` in the node's own view
+    of meta (/debug/health): static leader and each vnode's status."""
+    sets = json.loads(node.http("GET", "/debug/health"))["replica_sets"]
+    return [rs for o in owners for rs in sets.get(o, [])]
+
+
+def check_no_marks(cluster, owners, where: str) -> None:
+    """No vnode of `owners` is BROKEN in any node's view of meta: BROKEN
+    marks a replica whose data is suspect (quarantine, the scrubber),
+    and nothing here damages data; a replica a node could not reach
+    while a fault lasted is that node's health scorer's to judge."""
+    marks = {}
+    for n in cluster.nodes:
+        m = sorted(v["id"] for rs in replica_sets(n, owners)
+                   for v in rs["vnodes"] if v["status"] == "BROKEN")
+        if m:
+            marks[n.node_id] = m
+    if marks:
+        raise AssertionError(f"{where}: vnodes marked BROKEN, by the node "
+                             f"whose view of meta shows them: {marks}")
+
+
+def static_leader(cluster, node):
+    """The node that meta places the static leaders of tsbs's replica
+    sets on (one bucket: all on one node), in `node`'s view of meta."""
+    leaders = {rs["leader_node_id"]
+               for rs in replica_sets(node, ("cnosdb.tsbs",))}
+    if len(leaders) != 1:
+        raise AssertionError(f"tsbs's static leaders on nodes {leaders}")
+    (nid,) = leaders
+    return next(n for n in cluster.nodes if n.node_id == nid)
+
+
+def check_history(cluster, clients, where: str) -> int:
+    """The client history so far against every node's key set once the
+    node holds every acked key (or at the timeout) → operations."""
+    from cnosdb_tpu_torch.chaos.checker import run_client_checks
+    from cnosdb_tpu_torch.chaos.history import History
+
+    hist = History.load(clients.path)
+    for n in cluster.nodes:
+        final = wait_keys(n, clients.acked, timeout=90.0)
+        bad = [r for r in run_client_checks(hist, final) if not r.ok]
+        if bad:
+            raise AssertionError(f"{where}: node {n.node_id}: " + "; ".join(
+                f"{r.name}: {r.detail}" for r in bad))
+    return len(hist.ops)
+
+
 def same_rows(a: str, b: str) -> bool:
     """Two answer texts with the same rows: every field equal, or both
     floats within rtol 1e-12 (a float sum's last bits follow which node
@@ -2095,8 +2166,6 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
     sweep's workloads on the card (the default of every port process);
     anything raises on the first failure."""
     from cnosdb_tpu_torch.chaos import nemesis
-    from cnosdb_tpu_torch.chaos.checker import run_client_checks
-    from cnosdb_tpu_torch.chaos.history import History
     from cnosdb_tpu_torch.parallel.net import rpc_call
 
     root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
@@ -2207,6 +2276,7 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
                                  f"the device lane: {dd0}")
 
         # device_loss on a node whose mesh lane engages, clients on
+        owners = ("cnosdb.tsbs", "cnosdb.dcw")
         clients = Clients(os.path.join(root, "history.jsonl"))
         clients.write(n1, 10)
         plan = nemesis.generate_plan(NEMESIS_SEED, n_nodes=3, steps=3,
@@ -2272,6 +2342,7 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
                 rpc_call(f"127.0.0.1:{victim.rpc_port}", "_faults",
                          {"spec": nemesis.heal_spec(NEMESIS_SEED, ev)},
                          timeout=5.0)
+            check_no_marks(cluster, owners, f"{ctx} step {ev.step} healed")
             healed, answers = engaging_node(cluster, ev.node, data)
             if healed is None or answers != local_ref:
                 raise AssertionError(f"{ctx} step {ev.step}: the lane "
@@ -2287,9 +2358,81 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
         log(f"# device_loss ({ctx}): victims (node, rounds of the 3 "
             f"queries, answers with device_loss booked) {losses}; those "
             f"answers byte-identical to the all-local ones, every answer "
-            f"oracle-checked; lane engaged again after each heal with the "
-            f"same answers; cnosdb_mesh_total device_loss "
+            f"oracle-checked; no vnode BROKEN in any node's view of meta "
+            f"and the lane engaged again after each heal with the same "
+            f"answers; cnosdb_mesh_total device_loss "
             f"{out['device_loss']}, engaged {out['mesh_engaged']}")
+
+        # partition: a symmetric partition around one node. Every node
+        # answers, the cut-off one from its own replicas, and the other
+        # two take the clients' writes; after the heal no replica stays
+        # shunned (no mark in any node's view of meta), so the node
+        # holding tsbs's static leaders reads all-local, its lane
+        # engaging on the first pass
+        ev = nemesis.generate_plan(NEMESIS_SEED, n_nodes=3, steps=1,
+                                   kinds=("partition",))[0]
+        victim = cluster.nodes[ev.node]
+        survivors = [n for n in cluster.nodes if n is not victim]
+        vspec, ospec = nemesis.event_specs(
+            ev, f"127.0.0.1:{victim.rpc_port}", NEMESIS_SEED)
+        t = time.perf_counter()
+        try:
+            for n in cluster.nodes:
+                rpc_call(f"127.0.0.1:{n.rpc_port}", "_faults",
+                         {"spec": vspec if n is victim else ospec},
+                         timeout=5.0)
+            # the survivors, then the victim on its own replicas (its
+            # scan RPCs fail: a failed reach to each peer's replicas)
+            part_ms = {}
+            for n in survivors + [victim]:
+                for name, q in CLUSTER_SQL.items():
+                    t1 = time.perf_counter()
+                    check_cluster_answer(name, n.sql(q), data)
+                    part_ms.setdefault(name, []).append(
+                        round((time.perf_counter() - t1) * 1e3, 1))
+            reach = {k: b["consecutive_failures"] for k, b in json.loads(
+                victim.http("GET", "/debug/health"))["breakers"].items()}
+            failed0 = clients.failed
+            clients.write(survivors[0], 5)
+            for n in survivors:
+                clients.read(n)
+        finally:
+            for n in cluster.nodes:
+                rpc_call(f"127.0.0.1:{n.rpc_port}", "_faults",
+                         {"spec": nemesis.heal_spec(NEMESIS_SEED, ev)},
+                         timeout=5.0)
+        cut_s = time.perf_counter() - t
+        check_no_marks(cluster, owners, f"partition of node "
+                       f"{victim.node_id} healed")
+        leader = static_leader(cluster, n1)
+        healed, answers = engaging_node(cluster,
+                                        cluster.nodes.index(leader), data)
+        if healed is not leader or answers != local_ref:
+            raise AssertionError(
+                f"partition of node {victim.node_id} healed: the static "
+                f"leaders' node {leader.node_id}'s lane did not engage "
+                "first, or its answers differ from the all-local ones "
+                f"(engaged: {healed and healed.node_id})")
+        for n in cluster.nodes:
+            clients.read(n)
+        n_ops = check_history(cluster, clients, f"partition of node "
+                              f"{victim.node_id} healed")
+        out["partition"] = {"node": victim.node_id, "cut_s": cut_s,
+                            "query_ms": part_ms, "victim_failed": reach,
+                            "static_leader": leader.node_id}
+        log(f"# partition (nemesis seed={NEMESIS_SEED}, "
+            f"{ev.kind}@n{ev.node}): node {victim.node_id} cut off from "
+            f"its peers both ways for {cut_s:.2f}s; nodes "
+            f"{[n.node_id for n in survivors]}, then node {victim.node_id} "
+            f"on its own replicas, answered every query, each against the "
+            f"oracle (ms by node {part_ms}; the victim's RPCs failed in a "
+            f"row, by peer: {reach}); 5 keys written "
+            f"through node {survivors[0].node_id} "
+            f"({clients.failed - failed0} writes failed by a leadership "
+            f"change); after the heal no vnode BROKEN in any node's view "
+            f"of meta, the static leaders' node {leader.node_id} engaged "
+            f"its lane first with the all-local answers, and the history "
+            f"checker ({n_ops} operations) green on every node")
 
         # crash_restart: SIGKILL, clients keep going, restart, cold scan
         ev = nemesis.generate_plan(NEMESIS_SEED, n_nodes=3, steps=1,
@@ -2306,7 +2449,6 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
         victim.start()
         victim.wait_ready()
         restart_s = time.perf_counter() - t
-        owners = ("cnosdb.tsbs", "cnosdb.dcw")
         # leader-follow routing sends a restarted follower's scans to the
         # replica leaders, whose caches are warm: fail its scan RPCs to
         # its peers, so that every split fails over to its own replica
@@ -2357,6 +2499,7 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
                 raise AssertionError(
                     f"node {victim.node_id} {name} after the restart "
                     "differs from the all-local answer")
+        check_no_marks(cluster, owners, f"node {victim.node_id} restarted")
         dd = victim.metric("cnosdb_device_decode_total", lane="device",
                            reason="ok")
         for n in cluster.nodes:
@@ -2375,18 +2518,13 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
             f"{caught_up_s:.2f}s after the rounds with {mem} B in its "
             f"memory cache; its reads on its own replicas (scan RPCs to "
             f"its peers failed), answers byte-identical to the all-local "
-            f"ones; device decode pages (lane device, ok) {dd}")
+            f"ones, no vnode BROKEN in any node's view of meta; device "
+            f"decode pages (lane device, ok) {dd}")
 
         # the client history against every node's final state
         clients.rec.close()
-        hist = History.load(clients.path)
-        for n in cluster.nodes:
-            final = wait_keys(n, clients.acked, timeout=90.0)
-            bad = [r for r in run_client_checks(hist, final) if not r.ok]
-            if bad:
-                raise AssertionError(f"node {n.node_id}: " + "; ".join(
-                    f"{r.name}: {r.detail}" for r in bad))
-        log(f"# client checks: {len(hist.ops)} recorded operations, "
+        n_ops = check_history(cluster, clients, "end")
+        log(f"# client checks: {n_ops} recorded operations, "
             f"{len(clients.acked)} acked keys, {clients.failed} writes "
             f"failed by a leadership change; no lost acked write, no "
             "resurrection, read-your-writes, monotonic reads on every node")

@@ -72,7 +72,7 @@ class PlacedSplit:
     tier: str = "hot"
     # failover candidates: other replicas as (vnode_id, node_id)
     alternates: list = field(default_factory=list)
-    # replicas currently marked BROKEN (self-heal on a successful scan)
+    # replicas meta marks BROKEN: data-suspect until the repair clears it
     broken_ids: set = field(default_factory=set)
 
 
@@ -695,8 +695,9 @@ class Coordinator:
                     continue
                 seen.add(vnode_id)
                 # alternates: RUNNING replicas first; BROKEN ones stay as a
-                # last resort (and self-heal when a scan succeeds); COPYING
-                # replicas have no data yet and are never read
+                # last resort (only the anti-entropy repair clears the
+                # mark); COPYING replicas have no data yet and are never
+                # read
                 running = [(a.id, a.node_id) for a in rs.vnodes
                            if a.id != vnode_id
                            and a.status == VnodeStatus.RUNNING]
@@ -1205,10 +1206,7 @@ class Coordinator:
                     continue
                 alt = PlacedSplit(split.owner, vnode_id, split.table,
                                   split.time_ranges, split.tag_domains)
-                b = self._scan_local(alt, field_names)
-                if vnode_id in split.broken_ids:
-                    self._clear_vnode_broken(vnode_id)
-                return b
+                return self._scan_local(alt, field_names)
             try:
                 r = self._rpc(node_id, "scan_vnode", {
                     "owner": split.owner, "vnode_id": vnode_id,
@@ -1219,16 +1217,17 @@ class Coordinator:
                     "fp": fingerprint,
                 })
             except RpcUnavailable as e:
-                # connection-level failure only: an app-level RpcError
-                # (e.g. a memory-pool rejection) is not a broken replica
+                # this node could not reach the replica: _rpc's breaker
+                # and the health scorer book it for this node alone. Meta
+                # is every node's catalog, and a mark there would shun
+                # the replica cluster-wide after the fault healed
                 last_unreach = e
-                self._mark_vnode_broken(vnode_id)
                 continue
             except RpcError as e:
                 last_reject = e
                 continue
-            if vnode_id in split.broken_ids:
-                self._clear_vnode_broken(vnode_id)  # it answered: self-heal
+            # an answer does not clear a BROKEN mark: a replica whose
+            # file was quarantined answers with fewer rows
             raw = r.get("ipc")
             if raw is None:
                 return None
@@ -1334,12 +1333,11 @@ class Coordinator:
                             "fp": fingerprint,
                         }, hedge=bypass_ramp)
                         resq.put((idx, "remote", r))
-                except RpcThrottled as e:
-                    # slow-start ramp refusal: the peer was never
-                    # contacted — not evidence of a broken replica
-                    resq.put((idx, "unreach", e))
                 except RpcUnavailable as e:
-                    self._mark_vnode_broken(vnode_id)
+                    # a peer this node cannot reach (booked by _rpc's
+                    # breaker and the health scorer, for this node alone:
+                    # no mark in meta), or a slow-start ramp refusal that
+                    # never contacted it
                     resq.put((idx, "unreach", e))
                 except RpcError as e:
                     resq.put((idx, "reject", e))
@@ -1459,8 +1457,6 @@ class Coordinator:
                 lost = hedges_fired - (1 if won_by_hedge else 0)
                 if lost > 0:
                     health.count_hedge("lost", n=lost)
-                if a["vnode_id"] in split.broken_ids:
-                    self._clear_vnode_broken(a["vnode_id"])  # self-heal
                 if kind == "local":
                     return value
                 raw = value.get("ipc")
@@ -1540,11 +1536,14 @@ class Coordinator:
         self.meta.drop_database(tenant, db, if_exists=if_exists)
 
     def _mark_vnode_broken(self, vnode_id: int):
-        """Failed-replica marking (reference reader/mod.rs:36
-        CheckedCoordinatorRecordBatchStream → Broken status); readers then
-        prefer RUNNING replicas. Self-heals when a later scan succeeds.
-        Skips the meta write when already marked — a down node must not
-        turn every scan retry into an O(catalog) meta broadcast."""
+        """Data-suspect marking (reference reader/mod.rs:36
+        CheckedCoordinatorRecordBatchStream → Broken status) after a
+        quarantine on read or by the scrubber; readers then prefer
+        RUNNING replicas until the anti-entropy repair clears the mark.
+        A replica one node cannot reach is not marked: that is the node's
+        own health scorer's to judge. Skips the meta write when already
+        marked — repeated corruption hits must not turn into O(catalog)
+        meta broadcasts."""
         from ..models.meta_data import VnodeStatus
 
         try:

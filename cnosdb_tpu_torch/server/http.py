@@ -923,12 +923,27 @@ class HttpServer:
                     "applied": node.last_applied,
                     "elections": node.election_stats(),
                 }
+        # this node's view of meta's placement: each replica set's static
+        # leader and its vnodes' status (BROKEN = data-suspect until the
+        # repair), read from the node's own catalog replica
+        sets: dict = {}
+        meta = self.coord.meta
+        with meta.lock:
+            for owner, buckets in meta.buckets.items():
+                sets[owner] = [{
+                    "id": rs.id, "leader_vnode_id": rs.leader_vnode_id,
+                    "leader_node_id": rs.leader_node_id,
+                    "vnodes": [{"id": v.id, "node_id": v.node_id,
+                                "status": v.status.name}
+                               for v in rs.vnodes]}
+                    for b in buckets for rs in b.shard_group]
         return web.json_response({
             "hedging_enabled": health.enabled(),
             "hedge_delay_ms_floor": health.HEDGE_DELAY_FLOOR_MS,
             "hedge_max_inflight": health.HEDGE_MAX_INFLIGHT,
             "hedge_inflight": self.coord._hedge_limiter.inflight(),
             "raft_members": raft,
+            "replica_sets": sets,
             "nodes": health.SCORER.snapshot(),
             "breakers": cb,
             "slow_start": health.SLOW_START.ramping(),

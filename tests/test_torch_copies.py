@@ -271,13 +271,18 @@ SUBS = {
         ('"cnosdb_tpu/', '"cnosdb_tpu_torch/'),
         ("~cnosdb_tpu.analysis.Rule", "~cnosdb_tpu_torch.analysis.Rule")],
     "analysis/interproc.py": _INTERPROC_SUBS,
-    # the replica manager's lazy build is guarded (see REWRITTEN)
+    # the replica manager's lazy build is guarded (see REWRITTEN); a
+    # split's BROKEN replicas are data-suspect, no scan clears them
     "parallel/coordinator.py": [
         ("        self._replica_mgr = None  # built on first multi-replica "
          "write\n",
          "        self._replica_mgr = None  # built on first multi-replica "
          "write\n        self._replica_mgr_lock = lockwatch.Lock("
-         "\"coord.replica_mgr\")\n")],
+         "\"coord.replica_mgr\")\n"),
+        ("    # replicas currently marked BROKEN (self-heal on a successful "
+         "scan)\n",
+         "    # replicas meta marks BROKEN: data-suspect until the repair "
+         "clears it\n")],
     # the fallback reason of a series whose memory rows overlap its file
     "storage/scan.py": [
         ("""#                 cannot touch it (decodes via Python over the block cache)
@@ -299,10 +304,19 @@ REWRITTEN = {
     # concurrent raft messages at a node's boot built two, and the unseen
     # second one's members took leadership of their groups while the
     # registered members sat at commit 0 (a group leaderless for 180 s
-    # after a leader's SIGKILL on the card)
+    # after a leader's SIGKILL on the card); a scan's failed RPC no
+    # longer marks the replica BROKEN in meta, nor does an answer clear
+    # a mark: one node's failed reach (a partition, a peer's restart)
+    # made every node shun a healthy replica, its raft leader too, for
+    # good, and left no node's mesh lane engaged on the card; meta's
+    # BROKEN now means data-suspect only, cleared by the repair
     "parallel/coordinator.py": {"Coordinator._upload_hook",
                                 "Coordinator._decode_hook",
-                                "Coordinator.replica_manager"},
+                                "Coordinator.replica_manager",
+                                "Coordinator.table_vnodes",
+                                "Coordinator._scan_remote_solo",
+                                "Coordinator._scan_remote_hedged",
+                                "Coordinator._mark_vnode_broken"},
     # the wire query id names its tracker: ids from 1 in every process
     # collided in peers' cancel tombstones (a restarted node's queries
     # were refused as cancelled)
