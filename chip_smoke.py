@@ -50,6 +50,15 @@ Phases, in order:
      then dryrun_multichip(4): the mesh aggregate and three SQL shapes
      over 4 shards on the cards in turn (one card here), each held to
      its oracle; prints {"graft": {...}} on a line of its own;
+  5d. both SQL golden corpora (tests/sqllogic/, tests/sqllogic_ref/;
+     tests/sqllogic_port.py) through QueryExecutor.execute_one on the
+     card with no forcing env, X2/K1/K2/X4 counts zeroed just before and
+     read just after: every statement gives its golden answer or, where
+     the reference package is recorded wrong on its device branch
+     (tests/sqllogic_ref_faults.json), the reference's; X2 must launch;
+     prints {"sqllogic": {...}} on a line of its own (files and
+     statements passed per corpus, the statements that gave the recorded
+     reference answer, seconds, launches);
   6. the ClickBench hits table (bench_suites.py's schema and value
      distributions, --hits-rows rows from --seed) written through
      Coordinator.write_points, flushed and compacted; its 43 queries, then
@@ -103,7 +112,8 @@ Phases, in order:
      device-decode kernel_error outcome.
 
 Prints a JSON line of the analysis phase ({"analysis": {...}}), one of
-the graft phase ({"graft": {...}}), a JSON line of per-kernel numbers
+the graft phase ({"graft": {...}}), one of the SQL corpora
+({"sqllogic": {...}}), a JSON line of per-kernel numbers
 (with an "x4" list), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when there is no CUDA device, when
@@ -1071,6 +1081,77 @@ def graft_phase() -> dict:
         f"answer against its oracle; K1 +{launches['K1']}, K2 "
         f"+{launches['K2']}")
     print(json.dumps({"graft": res}), flush=True)
+    return res
+
+
+def sqllogic_phase() -> dict:
+    """Step 5d: both SQL golden corpora (tests/sqllogic/ and
+    tests/sqllogic_ref/, run by tests/sqllogic_port.py) through the port
+    on the card, every statement through QueryExecutor.execute_one with no
+    forcing env (the device branch is the default here), each file over a
+    fresh data directory. Every statement gives its golden answer or,
+    where the reference package is recorded wrong on its device branch
+    (tests/sqllogic_ref_faults.json), the reference's answer; any other
+    answer fails the phase. X2/K1/K2/X4 counts zeroed just before and read
+    just after. → the phase's JSON."""
+    sys.path.insert(0, os.path.join(REPO_DIR, "tests"))
+    import sqllogic_port as slt
+
+    from cnosdb_tpu_torch.ops import device_decode as dd
+    from cnosdb_tpu_torch.ops import fused, kernels
+    from cnosdb_tpu_torch.ops import pallas_kernels as pk
+
+    faults = slt.load_faults()
+    fused.launch_count = 0
+    pk.launches = 0
+    dd.xor_launches = 0
+    kernels.x4_launches.clear()
+    corpora, matched, off = {}, {}, []
+    t = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_slt_")
+    try:
+        for corpus in slt.CORPORA:
+            c = corpora[corpus] = {"files": 0, "files_passed": 0,
+                                   "statements": 0, "passed": 0}
+            for name in slt.corpus_files(corpus):
+                d = tempfile.mkdtemp(dir=root)
+                recs = slt.run_file(corpus, name, d)
+                shutil.rmtree(d, ignore_errors=True)
+                passed, keys, bad = slt.judge(recs, corpus, name, "device",
+                                              faults)
+                c["files"] += 1
+                c["files_passed"] += not bad
+                c["statements"] += len(recs)
+                c["passed"] += passed
+                off += bad
+                for key in keys:
+                    f, line = key.rsplit(":", 1)
+                    matched.setdefault(f, []).append(int(line))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _sync()
+    secs = time.perf_counter() - t
+    launches = {"X2": fused.launch_count, "K1": pk.launches,
+                "K2": dd.xor_launches,
+                "X4": sum(kernels.x4_launches.values()),
+                "X4_ops": dict(kernels.x4_launches)}
+    res = {"corpora": corpora, "seconds": secs, "launches": launches,
+           "reference_faults_matched": matched,
+           "n_reference_faults_matched": sum(map(len, matched.values()))}
+    log(f"# sqllogic: {secs:.2f}s; "
+        + "; ".join(f"{k} {v['files_passed']}/{v['files']} files, "
+                    f"{v['passed']}/{v['statements']} statements"
+                    for k, v in corpora.items())
+        + f"; {res['n_reference_faults_matched']} gave the reference's "
+        f"recorded answer; X2 +{launches['X2']}, K1 +{launches['K1']}, "
+        f"K2 +{launches['K2']}, X4 +{launches['X4']}")
+    for line in off:
+        log("# sqllogic off its rule: " + line)
+    print(json.dumps({"sqllogic": res}), flush=True)
+    if off:
+        raise AssertionError(f"{len(off)} corpus statements off their rule")
+    if launches["X2"] <= 0:
+        raise AssertionError("the corpora never launched the fused program")
     return res
 
 
@@ -3106,6 +3187,9 @@ def main(argv=None) -> int:
         # 5c. the graft entry points, their own counts zeroed just before
         graft_run = graft_phase()
 
+        # 5d. both SQL golden corpora, their own counts zeroed just before
+        slt_run = sqllogic_phase()
+
         # 6. the ClickBench hits path, its own counts zeroed just before it
         t = time.perf_counter()
         hits = build_hits(coord, args.seed, args.hits_rows)
@@ -3205,6 +3289,7 @@ def main(argv=None) -> int:
          "launches": launches["K1"],
          "mesh_launches": mesh_run["launches"]["K1"],
          "graft_launches": graft_run["launches"]["K1"],
+         "sqllogic_launches": slt_run["launches"]["K1"],
          "hits_launches": hits_run["K1"], "hits": hits_k1,
          "whole_table": whole_k1,
          "max_abs_err": max(r1["max_abs_err"], rb["max_abs_err"],
@@ -3219,6 +3304,7 @@ def main(argv=None) -> int:
          "launches": launches["K2"],
          "mesh_launches": mesh_run["launches"]["K2"],
          "graft_launches": graft_run["launches"]["K2"],
+         "sqllogic_launches": slt_run["launches"]["K2"],
          "hits_launches": hits_run["K2"],
          "max_abs_err": r2["max_abs_err"],
          "ms": r2["ms"], "kernel_ms": r2["kernel_ms"],

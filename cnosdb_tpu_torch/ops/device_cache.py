@@ -52,8 +52,31 @@ def _register_device_pool() -> None:
 _register_device_pool()
 
 
+# An UNSIGNED column on the device is its order-preserving int64, u ^ 2^63:
+# torch has next to no uint64 arithmetic or comparison, and int64's order
+# on the biased values is uint64's on the raw ones. The fused filter reads
+# it back as uint64 (ops/device_filter.FilterValue); the aggregates
+# un-bias their results (tpu_exec._assemble).
+U64_BIAS = -(1 << 63)
+
+
+def biased_u64(vals):
+    """UNSIGNED values in the device's form: uint64 values (a numpy array)
+    or u64 bit patterns in an int64 tensor → int64, u ^ 2^63."""
+    if isinstance(vals, torch.Tensor):
+        return vals ^ U64_BIAS
+    return (np.asarray(vals, dtype=np.uint64)
+            ^ np.uint64(1 << 63)).view(np.int64)
+
+
 def _dev_vals(vt: ValueType, vals: np.ndarray) -> np.ndarray:
-    return vals if vt != ValueType.BOOLEAN else vals.astype(np.int64)
+    """A field column as the device keeps it: BOOLEAN as int64 0/1 and
+    UNSIGNED biased (biased_u64)."""
+    if vt == ValueType.BOOLEAN:
+        return vals.astype(np.int64)
+    if vt == ValueType.UNSIGNED:
+        return biased_u64(vals)
+    return vals
 
 
 class DeviceBatch:
@@ -164,9 +187,8 @@ class EagerUploader:
             if vt == ValueType.BOOLEAN:
                 cat = cat.to(torch.int64)
             elif vt == ValueType.UNSIGNED:
-                # the lane carries u64 bit patterns as int64; the host
-                # path uploads the uint64 column itself
-                cat = cat.view(torch.uint64)
+                # the lane carries u64 bit patterns as int64
+                cat = biased_u64(cat)
             n = int(cat.shape[0])
             if n < self.n_pad:
                 cat = torch.cat([cat, torch.zeros(
@@ -220,9 +242,8 @@ def merged_device_batch(merged, cached, delta,
                     d_vals = _dev_vals(vt, df[1])
                     d_valid = df[2]
                 else:   # field absent from the delta: all-invalid zeros
-                    d_vals = np.zeros(
-                        n_d, dtype=np.int64 if vt == ValueType.BOOLEAN
-                        else vt.numpy_dtype())
+                    d_vals = _dev_vals(vt, np.zeros(n_d,
+                                                    dtype=vt.numpy_dtype()))
                     d_valid = np.zeros(n_d, dtype=bool)
                 d_vals_dev = _put(d_vals)
                 d_valid_dev = None if bool(d_valid.all()) \

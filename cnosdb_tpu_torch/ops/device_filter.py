@@ -1,0 +1,515 @@
+"""The filter stage of the fused program (X2): sql/expr.py's filter
+evaluation over device tensors, in numpy's types.
+
+The JAX package evaluates a device filter with `Expr.eval(env, jnp)`,
+and jax.numpy with x64 types every operation as numpy does. The port
+evaluates the same expression tree over `FilterValue`s, which carry that
+typing onto torch tensors, with `TorchXP` as the `xp` namespace.
+sql/expr.py needs no change for it.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..models.schema import ValueType
+from .device_cache import U64_BIAS as _BIAS
+from .device_cache import DeviceBatch
+
+_NP_DTYPE = {"b": np.dtype(bool), "i": np.dtype(np.int64),
+             "u": np.dtype(np.uint64), "f": np.dtype(np.float64)}
+_TORCH_DTYPE = {"b": torch.bool, "i": torch.int64, "u": torch.int64,
+                "f": torch.float64}
+
+
+class FilterValue:
+    """A column or an intermediate of a filter on the device, with numpy's
+    types: bool, int64, uint64 or float64 (`kind` "b", "i", "u", "f").
+
+    sql/expr.py evaluates a filter with the operators and numpy names of
+    its operands, and the JAX package gets numpy's promotion from
+    jax.numpy with x64. Torch promotes otherwise: an int64 tensor times a
+    Python float is float32, int64 / int64 is float32, a bool tensor takes
+    no `-`, and uint64 has next to no arithmetic or comparison. So every
+    operand of a device filter is one of these, and each operator computes
+    in the type numpy gives the pair:
+
+    - a float on either side: float64 (a uint64 converts exactly rounded);
+    - uint64 with uint64, or with a Python int (a "weak" scalar: jax.numpy
+      takes one inside int64's range and wraps it mod 2^64): uint64 that
+      wraps; uint64 with an int64 column: float64;
+    - otherwise int64; a BOOLEAN column counts as int64 0/1 in arithmetic
+      and comparison (the JAX package stages it as int64) and as a truth
+      value in `~`, `&`, `|`.
+
+    A uint64 lives in `t` as its order-preserving int64, u ^ 2^63, so an
+    ordered comparison is one int64 comparison; arithmetic un-biases,
+    wraps in int64 (two's complement wraps as uint64 does) and re-biases.
+    """
+
+    __slots__ = ("t", "kind")
+
+    def __init__(self, t: torch.Tensor, kind: str):
+        self.t = t
+        self.kind = kind
+
+    @property
+    def dtype(self):
+        return _NP_DTYPE[self.kind]
+
+    @property
+    def shape(self):
+        return tuple(self.t.shape)
+
+    def __len__(self):
+        return self.t.shape[0]
+
+    def __bool__(self):
+        # the jitted reference refuses a host branch on a device value
+        raise TypeError("the truth value of a device filter value is not "
+                        "known on the host")
+
+    def raw(self) -> torch.Tensor:
+        """The value's tensor with a uint64 un-biased to its bits."""
+        return self.t ^ _BIAS if self.kind == "u" else self.t
+
+    def f64(self) -> torch.Tensor:
+        if self.kind == "f":
+            return self.t
+        if self.kind != "u":
+            return self.t.to(torch.float64)
+        r = self.raw()
+        # two exact halves, one rounding: uint64 → float64 as numpy does
+        return ((r >> 32) & 0xFFFFFFFF).to(torch.float64) * 4294967296.0 \
+            + (r & 0xFFFFFFFF).to(torch.float64)
+
+    def as_kind(self, kind: str) -> "FilterValue":
+        """numpy's astype to another kind."""
+        if kind == self.kind:
+            return self
+        if kind == "f":
+            return FilterValue(self.f64(), "f")
+        if kind == "b":
+            return FilterValue(self.raw() != 0 if self.kind != "f"
+                               else self.t != 0, "b")
+        if self.kind == "f":   # numpy truncates toward zero
+            raw = torch.trunc(self.t).to(torch.int64)
+        else:
+            raw = self.raw().to(torch.int64)
+        return FilterValue(raw ^ _BIAS if kind == "u" else raw, kind)
+
+    # arithmetic
+    def __add__(self, o):
+        return _arith(self, o, torch.add)
+
+    def __radd__(self, o):
+        return _arith(o, self, torch.add)
+
+    def __sub__(self, o):
+        return _arith(self, o, torch.sub)
+
+    def __rsub__(self, o):
+        return _arith(o, self, torch.sub)
+
+    def __mul__(self, o):
+        return _arith(self, o, torch.mul)
+
+    def __rmul__(self, o):
+        return _arith(o, self, torch.mul)
+
+    def __truediv__(self, o):
+        return _true_div(self, o)
+
+    def __rtruediv__(self, o):
+        return _true_div(o, self)
+
+    def __floordiv__(self, o):
+        return _floor_div(self, o)
+
+    def __rfloordiv__(self, o):
+        return _floor_div(o, self)
+
+    def __neg__(self):
+        if self.kind == "f":
+            return FilterValue(-self.t, "f")
+        if self.kind == "u":
+            return FilterValue((-self.raw()) ^ _BIAS, "u")
+        return FilterValue(-self.t.to(torch.int64), "i")
+
+    # comparisons
+    def __eq__(self, o):
+        return _compare(self, o, torch.eq)
+
+    def __ne__(self, o):
+        return _compare(self, o, torch.ne)
+
+    def __lt__(self, o):
+        return _compare(self, o, torch.lt)
+
+    def __le__(self, o):
+        return _compare(self, o, torch.le)
+
+    def __gt__(self, o):
+        return _compare(self, o, torch.gt)
+
+    def __ge__(self, o):
+        return _compare(self, o, torch.ge)
+
+    # logic on booleans, bitwise on integers
+    def __and__(self, o):
+        return _bitwise(self, o, torch.bitwise_and)
+
+    __rand__ = __and__
+
+    def __or__(self, o):
+        return _bitwise(self, o, torch.bitwise_or)
+
+    __ror__ = __or__
+
+    def __xor__(self, o):
+        return _bitwise(self, o, torch.bitwise_xor)
+
+    __rxor__ = __xor__
+
+    def __invert__(self):
+        if self.kind == "f":
+            raise TypeError("~ takes a boolean or integer operand")
+        # ~(u ^ 2^63) == (~u) ^ 2^63: the biased form inverts in place
+        return FilterValue(~self.t, self.kind)
+
+
+def _scalar_kind(x) -> str | None:
+    """The kind of a Python or numpy scalar, None for anything else."""
+    if isinstance(x, (bool, np.bool_)):
+        return "b"
+    if isinstance(x, (int, np.integer)):
+        return "i"
+    if isinstance(x, (float, np.floating)):
+        return "f"
+    return None
+
+
+def _weak(x) -> bool:
+    """A Python scalar or a 0-d value: it takes the other operand's type
+    (jax.numpy's weak types), as `jnp.where(b == 0, 1, b)` does in
+    sql/expr.py's `_div`."""
+    return not isinstance(x, FilterValue) or x.t.dim() == 0
+
+
+def _kind(x) -> str:
+    if isinstance(x, FilterValue):
+        return x.kind
+    k = _scalar_kind(x)
+    if k is None:
+        raise TypeError(f"a device filter cannot take {type(x).__name__} "
+                        "operands")
+    return k
+
+
+def _common(a, b) -> str:
+    """The kind numpy computes `a op b` in (booleans count as int64)."""
+    ka, kb = _kind(a), _kind(b)
+    if "f" in (ka, kb):
+        return "f"
+    if "u" in (ka, kb):
+        other = b if ka == "u" else a
+        if _kind(other) == "u" or _weak(other):
+            return "u"
+        return "f"
+    return "i"
+
+
+def _int_scalar(x) -> int:
+    """A Python int as int64 bits. jax.numpy takes a weak int only inside
+    int64's range, even against uint64 (where it then wraps mod 2^64);
+    outside it raises, and so does this."""
+    x = int(x)
+    if not -(1 << 63) <= x < (1 << 63):
+        raise OverflowError(f"{x} does not fit int64")
+    return x
+
+
+def _as(x, kind: str):
+    """Operand `x` in `kind`: a tensor, or a Python scalar torch keeps in
+    that kind (an int for int64 and raw uint64 bits, a float for
+    float64). uint64 comes back as its raw bits, not biased."""
+    if isinstance(x, FilterValue):
+        if kind == "f":
+            return x.f64()
+        t = x.raw()
+        return t.to(torch.int64) if t.dtype is torch.bool else t
+    if kind == "f":
+        return float(x)
+    return _int_scalar(x)
+
+
+def _arith(a, b, op):
+    kind = _common(a, b)
+    out = op(_tensor(_as(a, kind), a, b), _as(b, kind))
+    return FilterValue(out ^ _BIAS if kind == "u" else out, kind)
+
+
+def _true_div(a, b):
+    # numpy's `/` is float64 for every numeric pair
+    return FilterValue(torch.div(_tensor(_as(a, "f"), a, b), _as(b, "f")),
+                       "f")
+
+
+def _floor_div(a, b):
+    kind = _common(a, b)
+    x, y = _tensor(_as(a, kind), a, b), _as(b, kind)
+    if kind == "f":
+        return FilterValue(torch.floor(x / y), "f")
+    if kind == "i":
+        return FilterValue(torch.div(x, y, rounding_mode="floor"), "i")
+    q, _r = _udivmod(x, y)
+    return FilterValue(q ^ _BIAS, "u")
+
+
+def _udivmod(x: torch.Tensor, y):
+    """Unsigned 64-bit division on raw int64 bits: (quotient, remainder).
+    A divisor of 0 gives 2^64 - 1 and 0, as jax.numpy does."""
+    y = torch.as_tensor(y, dtype=torch.int64, device=x.device)
+    zero = y == 0
+    d = torch.where(zero, 1, y)
+    big = d < 0                 # divisor ≥ 2^63: the quotient is 0 or 1
+    d_lo = torch.where(big, 1, d)
+    # (x >>> 1) // d, doubled, is at most one short of x // d
+    q = torch.div((x >> 1) & 0x7FFFFFFFFFFFFFFF, d_lo,
+                  rounding_mode="floor") << 1
+    r = x - q * d_lo
+    q = q + ((r ^ _BIAS) >= (d_lo ^ _BIAS)).to(torch.int64)
+    q = torch.where(big, ((x ^ _BIAS) >= (d ^ _BIAS)).to(torch.int64), q)
+    q = torch.where(zero, -1, q)
+    r = torch.where(zero, 0, x - q * d)
+    return q, r
+
+
+def _tensor(v, *operands) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v
+    dev = next(o.t.device for o in operands if isinstance(o, FilterValue))
+    dt = torch.bool if isinstance(v, bool) else (
+        torch.float64 if isinstance(v, float) else torch.int64)
+    return torch.tensor(v, dtype=dt, device=dev)
+
+
+def _compare(a, b, op):
+    if isinstance(b, str) or b is None:
+        raise TypeError("a device filter compares numbers only")
+    kind = _common(a, b)
+    if kind == "u":
+        # both sides biased: u ^ 2^63 orders as int64
+        x, y = (v.t if isinstance(v, FilterValue) and v.kind == "u"
+                else _as(v, kind) ^ _BIAS for v in (a, b))
+    else:
+        x, y = _as(a, kind), _as(b, kind)
+    return FilterValue(op(_tensor(x, a, b), y), "b")
+
+
+def _bitwise(a, b, op):
+    if _kind(a) == "b" and _kind(b) == "b":
+        x, y = (v.t if isinstance(v, FilterValue) else bool(v)
+                for v in (a, b))
+        return FilterValue(op(_tensor(x, a, b), y), "b")
+    kind = _common(a, b)
+    if kind == "f":
+        raise TypeError("bitwise operators take boolean or integer operands")
+    out = op(_tensor(_as(a, kind), a, b), _as(b, kind))
+    return FilterValue(out ^ _BIAS if kind == "u" else out, kind)
+
+
+def filter_mask(v, n: int, device) -> torch.Tensor:
+    """A filter's value → the [n] torch.bool row mask. A boolean is
+    itself; an integer passes on its lowest bit, which is what the JAX
+    package's `row_mask & value` keeps; a float is refused as there."""
+    if isinstance(v, (bool, np.bool_)):
+        return torch.full((n,), bool(v), dtype=torch.bool, device=device)
+    if isinstance(v, np.ndarray) and v.dtype.kind in "biu":
+        # a host-evaluated constant predicate (LIKE over literals)
+        kind = "b" if v.dtype == bool else "i"
+        v = FilterValue(torch.as_tensor(
+            v if kind == "b" else v.astype(np.int64),
+            device=device).reshape(-1), kind)
+    if not isinstance(v, FilterValue):
+        raise TypeError(f"a filter gave {type(v).__name__}, not a predicate")
+    if v.kind == "f":
+        raise TypeError("a filter gave float64 values, not a predicate")
+    m = v.t if v.kind == "b" else (v.raw() & 1) != 0
+    return m.expand(n) if m.numel() == 1 else m
+
+
+# numpy names whose result is float64 for any numeric input
+_FLOAT_FNS = {
+    "sqrt": torch.sqrt, "exp": torch.exp, "log": torch.log,
+    "log10": torch.log10, "log2": torch.log2, "log1p": torch.log1p,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
+    "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
+    "radians": torch.deg2rad, "degrees": torch.rad2deg,
+}
+
+
+class TorchXP:
+    """The numpy names sql/expr.py evaluates filters with
+    (expr.py:98-227, 931-975, 1315-1322), over FilterValues on one
+    device, with numpy's result types."""
+
+    pi = math.pi
+    int64 = np.int64
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+    def asarray(self, a) -> FilterValue:
+        if isinstance(a, FilterValue):
+            return a
+        kind = _kind(a)
+        v = _as(a, kind) if kind != "b" else bool(a)
+        return FilterValue(torch.tensor(v, dtype=_TORCH_DTYPE[kind],
+                                        device=self.device), kind)
+
+    def zeros(self, shape, dtype=None) -> FilterValue:
+        kind = "f" if dtype is None else np.dtype(dtype).kind
+        return FilterValue(torch.zeros(shape, dtype=_TORCH_DTYPE[kind],
+                                       device=self.device), kind)
+
+    def where(self, cond, a, b) -> FilterValue:
+        c = self.asarray(cond)
+        c = c.as_kind("b").t
+        kind = _common(a, b)
+        if not isinstance(a, FilterValue) and not isinstance(b, FilterValue):
+            kind = _kind(a) if _kind(a) == _kind(b) else kind
+        x, y = (self._in(v, kind) for v in (a, b))
+        return FilterValue(torch.where(c, x, y), kind)
+
+    def _in(self, v, kind: str) -> torch.Tensor:
+        """`v` in `kind`'s stored form (uint64 biased, booleans as
+        booleans) as a tensor on the device."""
+        if kind == "b":
+            return self.asarray(v).as_kind("b").t
+        if isinstance(v, FilterValue) and v.kind == kind:
+            return v.t
+        x = _as(v, kind)
+        if kind == "u":
+            x = x ^ _BIAS
+        return torch.as_tensor(x, dtype=_TORCH_DTYPE[kind],
+                               device=self.device)
+
+    def all(self, a) -> FilterValue:
+        return FilterValue(torch.all(self.asarray(a).as_kind("b").t), "b")
+
+    def isnan(self, a) -> FilterValue:
+        a = self.asarray(a)
+        if a.kind == "f":
+            return FilterValue(torch.isnan(a.t), "b")
+        return FilterValue(torch.zeros_like(a.t, dtype=torch.bool), "b")
+
+    def abs(self, a) -> FilterValue:
+        a = self.asarray(a)
+        if a.kind == "u":
+            return a
+        kind = "f" if a.kind == "f" else "i"
+        return FilterValue(torch.abs(_as(a, kind)), kind)
+
+    def _int_kept(self, a, op) -> FilterValue:
+        # jax.numpy's floor/ceil/trunc/round return an integer unchanged
+        a = self.asarray(a)
+        if a.kind != "f":
+            return a.as_kind("i") if a.kind == "b" else a
+        return FilterValue(op(a.t), "f")
+
+    def floor(self, a):
+        return self._int_kept(a, torch.floor)
+
+    def ceil(self, a):
+        return self._int_kept(a, torch.ceil)
+
+    def trunc(self, a):
+        return self._int_kept(a, torch.trunc)
+
+    def round(self, a, decimals=0):
+        d = int(decimals)
+        a = self.asarray(a)
+        if a.kind != "f" and d < 0:
+            raise NotImplementedError(
+                "integer round is not implemented for decimals < 0")
+        return self._int_kept(a, lambda t: torch.round(t, decimals=d))
+
+    def cbrt(self, a) -> FilterValue:
+        t = self.asarray(a).f64()
+        return FilterValue(torch.sign(t) * torch.pow(torch.abs(t),
+                                                     1.0 / 3.0), "f")
+
+    def arctan2(self, a, b) -> FilterValue:
+        return FilterValue(torch.atan2(*(self.asarray(v).f64()
+                                         for v in (a, b))), "f")
+
+    def fmod(self, a, b) -> FilterValue:
+        """C's remainder; an integer remainder by 0 is 0, as in
+        jax.numpy."""
+        kind = _common(a, b)
+        x, y = self._in(a, kind), self._in(b, kind)
+        if kind == "f":
+            return FilterValue(torch.fmod(x, y), "f")
+        if kind == "u":
+            _q, r = _udivmod(x ^ _BIAS, y ^ _BIAS)
+            return FilterValue(r ^ _BIAS, "u")
+        zero = y == 0
+        r = torch.fmod(x, torch.where(zero, 1, y))
+        return FilterValue(torch.where(zero, 0, r), "i")
+
+    def power(self, a, b) -> FilterValue:
+        kind = _common(a, b)
+        x, y = self._in(a, kind), self._in(b, kind)
+        if kind == "u":
+            return FilterValue(torch.pow(x ^ _BIAS, y ^ _BIAS) ^ _BIAS, "u")
+        if kind == "i" and not isinstance(b, FilterValue) and int(b) < 0:
+            # jax.numpy refuses a negative integer literal exponent
+            raise TypeError("integers cannot be raised to negative powers")
+        return FilterValue(torch.pow(x, y), kind)
+
+    def _int_pair(self, a, b, op) -> FilterValue:
+        a, b = self.asarray(a), self.asarray(b)
+        if "f" in (a.kind, b.kind):
+            raise TypeError("gcd/lcm take integer operands")
+        return FilterValue(op(_as(a, "i"), _as(b, "i")), "i")
+
+    def gcd(self, a, b):
+        return self._int_pair(a, b, torch.gcd)
+
+    def lcm(self, a, b):
+        return self._int_pair(a, b, torch.lcm)
+
+    def __getattr__(self, name):
+        fn = _FLOAT_FNS.get(name)
+        if fn is None:
+            raise AttributeError(name)
+
+        def call(a):
+            return FilterValue(fn(self.asarray(a).f64()), "f")
+        return call
+
+
+def filter_env(dbatch: DeviceBatch, names, device) -> dict:
+    """The environment a filter evaluates in: each column a FilterValue
+    of its SQL type (a BOOLEAN a truth value, an UNSIGNED its biased
+    int64 from the staging), plus its `__valid__:` mask."""
+    env = {}
+    for name in names:
+        vt, vals, valid = dbatch.fields[name]
+        if vt == ValueType.BOOLEAN:
+            v = FilterValue(vals != 0, "b")
+        elif vt == ValueType.UNSIGNED:
+            v = FilterValue(vals, "u")
+        else:
+            v = FilterValue(vals, "f" if vals.dtype.is_floating_point
+                            else "i")
+        env[name] = v
+        env[f"__valid__:{name}"] = (
+            valid if valid is not None
+            else torch.ones(vals.shape, dtype=torch.bool, device=device))
+    return env

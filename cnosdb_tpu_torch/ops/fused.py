@@ -18,18 +18,19 @@ directly from the int64 timestamp offset t = ts - E:
 which equals the i32 form `offset + floor((sec + rA_s + carry) / I_s)`
 term for term (floor division, so negative offsets round down too).
 
-Filters run through `Expr.eval(env, xp)` with `TorchXP`, a namespace that
-gives sql/expr.py the numpy names it calls, over tensors on the device.
+Filters run through `Expr.eval(env, xp)` over the batch's columns as
+`device_filter.FilterValue`s, with `device_filter.TorchXP` as `xp`: the
+operators and numpy names sql/expr.py calls, computed in numpy's types on
+the device.
 """
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 
 from ..sql.expr import Expr
 from .device_cache import DeviceBatch
+from .device_filter import TorchXP, filter_env, filter_mask
 from .kernels import local_segment_partials, pad_segments
 
 _kernel_cache: dict = {}
@@ -64,57 +65,6 @@ def bucket_arith_params(epoch_ns: int, origin: int, interval: int,
     if not (-(2**31) < offset < 2**31):
         return None
     return int(i_s), int(ra_s), int(ra_ns), int(offset)
-
-
-class TorchXP:
-    """The numpy names sql/expr.py evaluates filters with, over tensors on
-    one device (expr.py:98-227, 931-975, 1318-1322)."""
-
-    pi = math.pi
-    int64 = torch.int64
-
-    def __init__(self, device: torch.device):
-        self.device = device
-
-    def _t(self, a):
-        if isinstance(a, torch.Tensor):
-            return a
-        return torch.as_tensor(a, device=self.device)
-
-    def asarray(self, a):
-        return self._t(a)
-
-    def zeros(self, shape, dtype=None):
-        dt = torch.bool if dtype is bool else (dtype or torch.float64)
-        return torch.zeros(shape, dtype=dt, device=self.device)
-
-    def where(self, cond, a, b):
-        return torch.where(self._t(cond), self._t(a), self._t(b))
-
-    def all(self, a):
-        return torch.all(self._t(a))
-
-    def round(self, a, decimals=0):
-        return torch.round(self._t(a), decimals=int(decimals))
-
-    def cbrt(self, a):
-        a = self._t(a).to(torch.float64)
-        return torch.sign(a) * torch.pow(torch.abs(a), 1.0 / 3.0)
-
-    def __getattr__(self, name):
-        fn = getattr(torch, _TORCH_NAME.get(name, name))
-
-        def call(*args, **kw):
-            return fn(*[self._t(a) for a in args], **kw)
-        return call
-
-
-_TORCH_NAME = {
-    "arcsin": "asin", "arccos": "acos", "arctan": "atan",
-    "arcsinh": "asinh", "arccosh": "acosh", "arctanh": "atanh",
-    "arctan2": "atan2", "power": "pow", "radians": "deg2rad",
-    "degrees": "rad2deg",
-}
 
 
 class PendingFused:
@@ -226,18 +176,9 @@ def _build_kernel(filter_expr: Expr | None, col_wants: dict,
         n = dbatch.n_pad
         mask = torch.arange(n, device=dev) < dbatch.n_rows
         if filter_expr is not None:
-            env = {}
-            for name, (vals, valid) in fields.items():
-                env[name] = vals
-                env[f"__valid__:{name}"] = (
-                    valid if valid is not None
-                    else torch.ones(vals.shape, dtype=torch.bool,
-                                    device=dev))
-            fmask = filter_expr.eval(env, TorchXP(dev))
-            if not isinstance(fmask, torch.Tensor):   # constant predicate
-                fmask = torch.full((n,), fmask, dtype=torch.bool,
-                                   device=dev)
-            mask = mask & fmask
+            fmask = filter_expr.eval(filter_env(dbatch, present, dev),
+                                     TorchXP(dev))
+            mask = mask & filter_mask(fmask, n, dev)
             # null operands exclude rows (host path does the same)
             for c in filter_expr.columns():
                 if c in fields and fields[c][1] is not None:

@@ -832,8 +832,9 @@ def launch_scan_aggregate(batch: ScanBatch, query: TpuQuery):
                 # kernel's comparisons/min/max exact for values ≥ 2^63;
                 # sums stay exact mod 2^64 and _assemble un-biases. The
                 # numpy path compares/accumulates uint64 natively: no bias.
-                dev_vals = (np.asarray(vals, dtype=np.uint64)
-                            ^ np.uint64(1 << 63)).view(np.int64)
+                from .device_cache import biased_u64
+
+                dev_vals = biased_u64(vals)
             else:
                 dev_vals = vals
             all_valid = col_all_valid(cname, valid)

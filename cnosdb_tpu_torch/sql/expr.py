@@ -929,8 +929,10 @@ class Func(Expr):
     # function/common/math_function/abs.slt)
     _FUNCS = {
         "abs": lambda xp, a: _math_float(xp, xp.abs(a)),
-        "floor": lambda xp, a: xp.floor(a),
-        "ceil": lambda xp, a: xp.ceil(a),
+        # numpy 2.3 keeps an integer input's dtype in floor, ceil and
+        # trunc; the reference returns Float64 (math_function/ceil.slt)
+        "floor": lambda xp, a: _math_float(xp, xp.floor(a)),
+        "ceil": lambda xp, a: _math_float(xp, xp.ceil(a)),
         "round": lambda xp, a, *nd: _math_float(
             xp, xp.round(a, *[int(d) for d in nd])),
         "sqrt": lambda xp, a: xp.sqrt(a),
@@ -963,7 +965,7 @@ class Func(Expr):
                          xp.where(xp.asarray(a) >= 0, 1.0, -1.0))
             if hasattr(a, "__len__") or hasattr(a, "shape")
             else (float("nan") if a != a else (1.0 if a >= 0 else -1.0))),
-        "trunc": lambda xp, a: xp.trunc(a),
+        "trunc": lambda xp, a: _math_float(xp, xp.trunc(a)),
         "radians": lambda xp, a: xp.radians(a),
         "degrees": lambda xp, a: xp.degrees(a),
         "gcd": lambda xp, a, b: xp.gcd(_as_i64(xp, a), _as_i64(xp, b)),

@@ -121,7 +121,7 @@ def host_sync_sites():
     ("ops/kernels.py", 79),        # the ordered f64 sum's run count
     ("ops/kernels.py", 316),       # to_host
     ("ops/device_decode.py", 314), # the cold-scan write-back
-    ("ops/fused.py", 134),         # PendingFused.fetch
+    ("ops/fused.py", 84),          # PendingFused.fetch
     ("parallel/distributed_agg.py", 196),
     ("ops/mesh_exec.py", 554),
 ])
@@ -154,7 +154,7 @@ def test_pinned_staging_buffers_are_host():
     assert not {(pk, ln) for ln in views} & lines
     # ...while the same run, disables ignored, does see the real pulls
     assert ("cnosdb_tpu_torch/ops/kernels.py", 79) in lines
-    assert ("cnosdb_tpu_torch/ops/fused.py", 134) in lines
+    assert ("cnosdb_tpu_torch/ops/fused.py", 84) in lines
 
 
 # -------------------------------------------------------------- parity

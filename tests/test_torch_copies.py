@@ -217,7 +217,14 @@ _HOT_FILES = ("cnosdb_tpu_torch/storage/scan.py",
 # per file: exact line substitutions
 SUBS = {
     "ops/tpu_exec.py": [('scan_device().platform == "cpu"',
-                         'scan_device().type == "cpu"')],
+                         'scan_device().type == "cpu"'),
+                        # the device staging's one bias helper
+                        ("""                dev_vals = (np.asarray(vals, dtype=np.uint64)
+                            ^ np.uint64(1 << 63)).view(np.int64)
+""", """                from .device_cache import biased_u64
+
+                dev_vals = biased_u64(vals)
+""")],
     "ops/mesh_exec.py": [
         ('scan_device().platform == "cpu"', 'scan_device().type == "cpu"'),
         ("from jax.sharding import PartitionSpec as P",
@@ -283,6 +290,20 @@ SUBS = {
          "scan)\n",
          "    # replicas meta marks BROKEN: data-suspect until the repair "
          "clears it\n")],
+    # floor, ceil and trunc of an integer are Float64 on any numpy (numpy
+    # 2.3 keeps the integer dtype: on the card `ceil(bigint)` rendered 0,
+    # not 0.0, in ref_function_common_math_function_ceil.slt)
+    "sql/expr.py": [
+        ('        "floor": lambda xp, a: xp.floor(a),\n'
+         '        "ceil": lambda xp, a: xp.ceil(a),\n',
+         "        # numpy 2.3 keeps an integer input's dtype in floor, ceil "
+         "and\n"
+         "        # trunc; the reference returns Float64 "
+         "(math_function/ceil.slt)\n"
+         '        "floor": lambda xp, a: _math_float(xp, xp.floor(a)),\n'
+         '        "ceil": lambda xp, a: _math_float(xp, xp.ceil(a)),\n'),
+        ('        "trunc": lambda xp, a: xp.trunc(a),\n',
+         '        "trunc": lambda xp, a: _math_float(xp, xp.trunc(a)),\n')],
     # the fallback reason of a series whose memory rows overlap its file
     "storage/scan.py": [
         ("""#                 cannot touch it (decodes via Python over the block cache)
