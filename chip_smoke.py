@@ -56,9 +56,22 @@ Phases, in order:
      read just after: every statement gives its golden answer or, where
      the reference package is recorded wrong on its device branch
      (tests/sqllogic_ref_faults.json), the reference's; X2 must launch;
-     prints {"sqllogic": {...}} on a line of its own (files and
-     statements passed per corpus, the statements that gave the recorded
-     reference answer, seconds, launches);
+     a statement the reference answers wrong on its device branch only
+     (no host answer recorded) must be golden, and at most 190 may give
+     the reference's answer; prints {"sqllogic": {...}} on a line of its
+     own (files and statements passed per corpus, the statements that
+     gave the recorded reference answer, seconds, launches);
+  5e. device semantics at size: a TSBS devops `net`-shaped table
+     (SEM_ROWS rows, 100 hosts, 10 s points, from --seed; BIGINT byte
+     counters whose per-host sums pass 2^53, a BIGINT above 2^62, about
+     10 % NULLs in one DOUBLE and one BIGINT field) in a directory of its
+     own; int64 sum/min/max by host, count(*) under OR and NOT across the
+     nullable fields, NOT IN with and then without a NULL, integer x/0,
+     CAST and count(hostname), each equal to a numpy and Python-int
+     oracle, X2's launches rising for each query it must take and not
+     for count(hostname); the int64 aggregates again at K1's windowed
+     shape (K1 launching) and on the width-1 mesh lane; X2/K1 counts zeroed just before and read just after; prints
+     {"semantics": {...}} on a line of its own;
   6. the ClickBench hits table (bench_suites.py's schema and value
      distributions, --hits-rows rows from --seed) written through
      Coordinator.write_points, flushed and compacted; its 43 queries, then
@@ -113,7 +126,8 @@ Phases, in order:
 
 Prints a JSON line of the analysis phase ({"analysis": {...}}), one of
 the graft phase ({"graft": {...}}), one of the SQL corpora
-({"sqllogic": {...}}), a JSON line of per-kernel numbers
+({"sqllogic": {...}}), one of the semantics phase ({"semantics":
+{...}}), a JSON line of per-kernel numbers
 (with an "x4" list), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when there is no CUDA device, when
@@ -1150,8 +1164,249 @@ def sqllogic_phase() -> dict:
     print(json.dumps({"sqllogic": res}), flush=True)
     if off:
         raise AssertionError(f"{len(off)} corpus statements off their rule")
+    # the device branch answers as the host branch: a statement the
+    # reference answers wrong on its device branch only is golden here
+    device_only = sorted(f"{f}:{ln}" for f, lines in matched.items()
+                         for ln in lines if "host" not in faults[f"{f}:{ln}"])
+    if device_only:
+        raise AssertionError(f"device-only reference faults not golden: "
+                             f"{device_only}")
+    if res["n_reference_faults_matched"] > 190:
+        raise AssertionError(f"{res['n_reference_faults_matched']} "
+                             "statements at the reference's answer, over 190")
     if launches["X2"] <= 0:
         raise AssertionError("the corpora never launched the fused program")
+    return res
+
+
+# ---------------------------------------------------------------- semantics
+# Step 5e: the device branch answers as the host branch, at size. The
+# compressed-domain lane would answer an unfiltered aggregate of flushed
+# pages from their statistics: off here, so that X2 answers it.
+SEM_ENV = {"CNOSDB_COMPRESSED_DOMAIN": "0"}
+SEM_T = 400_000_000_000           # bytes_recv / drop_in below this
+# 20,000 points a host, so that each host's byte counters sum past 2^53
+SEM_ROWS = 2_000_000
+
+
+class NetData:
+    """TSBS devops `net`-shaped columns (per-host BIGINT byte and packet
+    counters, one point every 10 s), host-major, from --seed. bytes_recv
+    and bytes_sent are drawn so that each host's sum passes 2^53 and stays
+    under 2^63; packets_recv holds values above 2^62 (min and max only);
+    drop_in (BIGINT, 0-7: zero divisors) and err_rate (DOUBLE) are NULL in
+    about 10 % of the rows each."""
+
+    def __init__(self, seed: int, rows: int):
+        self.per_host = per = max(1, rows // N_HOSTS)
+        rng = np.random.default_rng(seed + 5)
+        lo = max(2**40, -(-(2**54) // per))
+        shape = (N_HOSTS, per)
+        self.recv = rng.integers(lo, 2 * lo, shape, dtype=np.int64)
+        self.sent = rng.integers(lo, 2 * lo, shape, dtype=np.int64)
+        self.packets = rng.integers(2**62, 2**63 - 1, shape, dtype=np.int64)
+        self.drop = rng.integers(0, 8, shape, dtype=np.int64)
+        self.drop_ok = rng.random(shape) >= 0.1
+        self.err = np.round(rng.uniform(0, 3, shape), 3)
+        self.err_ok = rng.random(shape) >= 0.1
+        self.ts = BASE_TS + np.arange(per, dtype=np.int64) * INTERVAL_NS
+        self.rows = N_HOSTS * per
+
+
+def net_ingest(coord, nd: NetData) -> float:
+    """Write `nd` as table `net`; a nullable field is written at its
+    non-NULL rows only. Flushed and compacted. → seconds."""
+    from cnosdb_tpu_torch.models.points import SeriesRows, WriteBatch
+    from cnosdb_tpu_torch.models.schema import ValueType
+    from cnosdb_tpu_torch.models.series import SeriesKey
+    from cnosdb_tpu_torch.parallel.meta import DEFAULT_TENANT
+
+    i64, f64 = int(ValueType.INTEGER), int(ValueType.FLOAT)
+    t0 = time.perf_counter()
+
+    def load_host(h):
+        key = SeriesKey("net", {"hostname": f"host_{h:03d}"})
+        for off in range(0, nd.per_host, CHUNK):
+            e = min(off + CHUNK, nd.per_host)
+            ts = nd.ts[off:e]
+            parts = [(ts, {"bytes_recv": (i64, nd.recv[h, off:e]),
+                           "bytes_sent": (i64, nd.sent[h, off:e]),
+                           "packets_recv": (i64, nd.packets[h, off:e])})]
+            for name, vt, vals, ok in (("drop_in", i64, nd.drop, nd.drop_ok),
+                                       ("err_rate", f64, nd.err, nd.err_ok)):
+                m = ok[h, off:e]
+                parts.append((ts[m], {name: (vt, vals[h, off:e][m])}))
+            for part_ts, fields in parts:
+                wb = WriteBatch()
+                wb.add_series("net", SeriesRows(key, part_ts, fields))
+                coord.write_points(DEFAULT_TENANT, "public", wb)
+
+    with ThreadPoolExecutor(max_workers=LOAD_WORKERS) as pool:
+        list(pool.map(load_host, range(N_HOSTS)))
+    coord.engine.flush_all()
+    coord.engine.compact_all()
+    return time.perf_counter() - t0
+
+
+def semantics_queries(nd: NetData) -> list:
+    """[(name, sql, want, route)]: `want` the oracle's answer from the
+    generated arrays (Python ints for the int64 aggregates); `route` the
+    path that must take the query: "X2" or "K1" (its launches rise),
+    "mesh" (the lane engages) or "host" (a TAGS aggregate, which X2
+    declines: its launches stay). The x/0 query counts the rows below a
+    bound, so an x/0 that gave 0 in place of NULL would be counted."""
+    d, dk, e, ek = nd.drop, nd.drop_ok, nd.err, nd.err_ok
+    per_host = [(f"host_{h:03d}", sum(nd.recv[h].tolist()),
+                 sum(nd.sent[h].tolist()), int(nd.packets[h].min()),
+                 int(nd.packets[h].max())) for h in range(N_HOSTS)]
+    by_host = ("SELECT hostname, sum(bytes_recv) AS r, sum(bytes_sent) AS "
+               "s, min(packets_recv) AS lo, max(packets_recv) AS hi FROM net "
+               "GROUP BY hostname")
+    safe = np.where(d == 0, 1, d)
+    mid = nd.per_host // 2
+    w_lo = int(nd.ts[mid])
+    w_hi = int(nd.ts[min(nd.per_host - 1, mid + 4320)])
+    hosts = list(range(0, 64, 8))
+    win = (nd.ts >= w_lo) & (nd.ts <= w_hi)
+    bucket = (nd.ts[win] - BASE_TS) // BUCKET_NS
+    windowed = []
+    for b in np.unique(bucket):
+        sel = np.flatnonzero(win)[bucket == b]
+        r = nd.recv[hosts][:, sel]
+        p = nd.packets[hosts][:, sel]
+        windowed.append((int(BASE_TS + b * BUCKET_NS), sum(r.ravel().tolist()),
+                         int(p.min()), int(p.max())))
+    in_list = ", ".join(f"'host_{h:03d}'" for h in hosts)
+
+    def count(m):
+        return [(int(m.sum()),)]
+
+    return [
+        ("int64 sum/min/max by host", by_host, per_host, "X2"),
+        ("OR across NULLs",
+         "SELECT count(*) AS c FROM net WHERE drop_in > 5 OR err_rate > 2.5",
+         count((dk & (d > 5)) | (ek & (e > 2.5))), "X2"),
+        ("NOT across NULLs",
+         "SELECT count(*) AS c FROM net WHERE NOT (drop_in > 5 AND "
+         "err_rate < 0.5)", count((dk & (d <= 5)) | (ek & (e >= 0.5))), "X2"),
+        ("NOT IN with a NULL",
+         "SELECT count(*) AS c FROM net WHERE drop_in NOT IN (1, 2, NULL)",
+         [(0,)], "X2"),
+        ("NOT IN without it",
+         "SELECT count(*) AS c FROM net WHERE drop_in NOT IN (1, 2)",
+         count(dk & (d != 1) & (d != 2)), "X2"),
+        ("integer x/0",
+         f"SELECT count(*) AS c FROM net WHERE bytes_recv / drop_in < {SEM_T}",
+         count(dk & (d != 0) & (nd.recv // safe < SEM_T)), "X2"),
+        ("CAST",
+         "SELECT count(*) AS c FROM net WHERE CAST(err_rate AS BIGINT) >= 2",
+         count(ek & (np.trunc(e) >= 2)), "X2"),
+        ("TAGS aggregate",
+         "SELECT count(hostname) AS c FROM net WHERE err_rate > 1.0",
+         count(ek & (e > 1.0)), "host"),
+        ("int64 window (K1's shape)",
+         "SELECT date_bin(INTERVAL '1 hour', time) AS t, sum(bytes_recv) AS "
+         "r, min(packets_recv) AS lo, max(packets_recv) AS hi FROM net WHERE "
+         f"hostname IN ({in_list}) AND time >= {w_lo} AND time <= {w_hi} "
+         "GROUP BY t", windowed, "K1"),
+        ("int64 sum/min/max by host, mesh lane", by_host, per_host, "mesh"),
+    ]
+
+
+def _rows_of(rs) -> list:
+    """The result's rows as tuples of Python values, sorted."""
+    cols = [[x.item() if hasattr(x, "item") else x for x in c]
+            for c in rs.columns]
+    return sorted(zip(*cols))
+
+
+def semantics_phase(seed: int, rows: int) -> dict:
+    """Step 5e: the table `net` (NetData, `rows` rows from --seed) in
+    a data directory of its own; every query of semantics_queries through
+    QueryExecutor.execute_one with no forcing env, each answer equal to
+    its oracle, X2 launched for each query routed "X2", K1's and the mesh
+    lane's answers to the int64 aggregates exact too. X2/K1 counts zeroed
+    just before and read just after. → the phase's JSON."""
+    from cnosdb_tpu_torch.ops import fused
+    from cnosdb_tpu_torch.ops import pallas_kernels as pk
+    from cnosdb_tpu_torch.parallel import mesh
+    from cnosdb_tpu_torch.parallel.coordinator import Coordinator
+    from cnosdb_tpu_torch.parallel.meta import MetaStore
+    from cnosdb_tpu_torch.sql.executor import QueryExecutor, Session
+    from cnosdb_tpu_torch.storage.engine import TsKv
+
+    t_phase = time.perf_counter()
+    nd = NetData(seed, rows)
+    root = tempfile.mkdtemp(prefix="chip_smoke_sem_")
+    saved = {k: os.environ.get(k)
+             for k in {*SEM_ENV, *MESH_KNOBS, "CNOSDB_MESH_DEVICES"}}
+    os.environ.update(SEM_ENV)
+    coord = None
+    try:
+        meta = MetaStore(os.path.join(root, "meta.json"))
+        coord = Coordinator(meta, TsKv(os.path.join(root, "data")))
+        ex = QueryExecutor(meta, coord)
+        s = Session(database="public")
+        ex.execute_one(f"ALTER DATABASE public SET SHARD {SHARDS}", s)
+        ingest_s = net_ingest(coord, nd)
+        queries = semantics_queries(nd)
+        fused.launch_count = 0
+        pk.launches = 0
+        mesh.reset_counters()
+        t = time.perf_counter()
+        out = []
+        for name, sql, want, route in queries:
+            if route == "mesh":
+                os.environ.update(MESH_KNOBS)
+                os.environ["CNOSDB_MESH_DEVICES"] = "1"
+            x2, k1 = fused.launch_count, pk.launches
+            before = mesh.outcomes_snapshot()
+            q0 = time.perf_counter()
+            rs = ex.execute_one(sql, s)
+            _sync()
+            ms = (time.perf_counter() - q0) * 1e3
+            got = _rows_of(rs)
+            if got != sorted(want):
+                bad = next((g, w) for g, w in zip(got, sorted(want))
+                           if g != w) if len(got) == len(want) else \
+                    (len(got), len(want))
+                raise AssertionError(f"semantics {name}: {bad} against the "
+                                     "oracle")
+            d_x2, d_k1 = fused.launch_count - x2, pk.launches - k1
+            engaged = mesh.outcomes_snapshot().get(("exec", "engaged"), 0) \
+                - before.get(("exec", "engaged"), 0)
+            if route == "X2" and d_x2 <= 0:
+                raise AssertionError(f"semantics {name}: X2 did not launch")
+            if route == "K1" and d_k1 <= 0:
+                raise AssertionError(f"semantics {name}: K1 did not launch")
+            if route == "host" and d_x2 != 0:
+                raise AssertionError(f"semantics {name}: X2 launched {d_x2} "
+                                     "times for a query it must decline")
+            if route == "mesh" and engaged <= 0:
+                raise AssertionError(f"semantics {name}: the mesh lane did "
+                                     "not engage")
+            out.append({"name": name, "ms": ms, "rows": len(got),
+                        "X2": d_x2, "K1": d_k1, "mesh": engaged})
+            log(f"# semantics {name}: {ms:.1f} ms, {len(got)} rows equal "
+                f"to the oracle, X2 +{d_x2}, K1 +{d_k1}, mesh +{engaged}")
+        secs = time.perf_counter() - t
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if coord is not None:
+            coord.close()
+        shutil.rmtree(root, ignore_errors=True)
+    res = {"rows": nd.rows, "ingest_s": ingest_s, "queries_s": secs,
+           "seconds": time.perf_counter() - t_phase,
+           "launches": {"X2": fused.launch_count, "K1": pk.launches},
+           "queries": out}
+    log(f"# semantics phase: {res['seconds']:.2f}s ({nd.rows} rows, ingest "
+        f"{ingest_s:.2f}s, {len(out)} queries {secs:.2f}s); X2 "
+        f"+{fused.launch_count}, K1 +{pk.launches}")
+    print(json.dumps({"semantics": res}), flush=True)
     return res
 
 
@@ -3190,6 +3445,9 @@ def main(argv=None) -> int:
         # 5d. both SQL golden corpora, their own counts zeroed just before
         slt_run = sqllogic_phase()
 
+        # 5e. device semantics at size, its own counts zeroed just before
+        sem_run = semantics_phase(args.seed, SEM_ROWS)
+
         # 6. the ClickBench hits path, its own counts zeroed just before it
         t = time.perf_counter()
         hits = build_hits(coord, args.seed, args.hits_rows)
@@ -3290,6 +3548,7 @@ def main(argv=None) -> int:
          "mesh_launches": mesh_run["launches"]["K1"],
          "graft_launches": graft_run["launches"]["K1"],
          "sqllogic_launches": slt_run["launches"]["K1"],
+         "semantics_launches": sem_run["launches"]["K1"],
          "hits_launches": hits_run["K1"], "hits": hits_k1,
          "whole_table": whole_k1,
          "max_abs_err": max(r1["max_abs_err"], rb["max_abs_err"],

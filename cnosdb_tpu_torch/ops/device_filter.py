@@ -5,16 +5,45 @@ The JAX package evaluates a device filter with `Expr.eval(env, jnp)`,
 and jax.numpy with x64 types every operation as numpy does. The port
 evaluates the same expression tree over `FilterValue`s, which carry that
 typing onto torch tensors, with `TorchXP` as the `xp` namespace.
-sql/expr.py needs no change for it.
+
+NULLs follow the host branch (`xp is np` in sql/expr.py), not the JAX
+package's device branch. `row_mask` walks the filter's AND, OR and NOT
+itself, as the host does: a comparison, IN or BETWEEN is definitely true
+where its value is true and every column it reads is valid (the
+`__valid__` masks), and NOT takes the definitely-false rows of its
+operand (the negated comparison, IN or BETWEEN; sql/expr.py
+`_eval_false_mask`). So an OR keeps a row that one branch matched while
+the other branch's column is NULL, and NOT of a comparison with NaN is
+false, both as on the host. A FilterValue carries the NULLs an integer
+x/0 makes through every operator after it.
+
+That walk is a second copy of the host's NULL rules, which act only on
+numpy arrays. Each function here mirrors these of sql/expr.py, and a
+change to one side's rules goes to the other in the same change:
+
+- `_true`: `BinOp.eval` for AND and OR, `UnaryOp.eval` for NOT (a
+  constant's `not`, and `~` of an int, -2 for `~True`);
+- `_false`: `_eval_false_mask`;
+- `_definite`: `_mask_operand_validity` as `BinOp.eval`, `InList.eval`,
+  `Between.eval` and `_eval_false_mask` (a negated column) call it, and
+  `_obj_binop`'s object-array comparison, which skips that mask;
+- `TorchXP.null_where`: `_div`'s integer x/0;
+- `row_mask`'s conjunctive mask: ops/tpu_exec.py `host_row_mask`'s mask
+  after the filter.
+
+tests/test_torch_device_semantics.py holds the device count to the
+port's own host branch and the JAX package's on random filters.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
 from ..models.schema import ValueType
+from ..sql.expr import Between, BinOp, Column, Expr, InList, Literal, UnaryOp
 from .device_cache import U64_BIAS as _BIAS
 from .device_cache import DeviceBatch
 
@@ -49,11 +78,18 @@ class FilterValue:
     wraps in int64 (two's complement wraps as uint64 does) and re-biases.
     """
 
-    __slots__ = ("t", "kind")
+    __slots__ = ("t", "kind", "nulls")
 
-    def __init__(self, t: torch.Tensor, kind: str):
+    def __init__(self, t: torch.Tensor, kind: str, nulls=None):
         self.t = t
         self.kind = kind
+        # the NULLs an integer x/0 made: (where valid, whether the host
+        # holds the value as an object array, a 0-d bool), None if none
+        self.nulls = nulls
+
+    @property
+    def valid(self) -> torch.Tensor | None:
+        return None if self.nulls is None else self.nulls[0]
 
     @property
     def dtype(self):
@@ -90,15 +126,24 @@ class FilterValue:
         if kind == self.kind:
             return self
         if kind == "f":
-            return FilterValue(self.f64(), "f")
+            return FilterValue(self.f64(), "f", self.nulls)
         if kind == "b":
             return FilterValue(self.raw() != 0 if self.kind != "f"
-                               else self.t != 0, "b")
-        if self.kind == "f":   # numpy truncates toward zero
-            raw = torch.trunc(self.t).to(torch.int64)
-        else:
+                               else self.t != 0, "b", self.nulls)
+        if self.kind != "f":
             raw = self.raw().to(torch.int64)
-        return FilterValue(raw ^ _BIAS if kind == "u" else raw, kind)
+            return FilterValue(raw ^ _BIAS if kind == "u" else raw, kind,
+                               self.nulls)
+        t = torch.trunc(self.t)   # numpy truncates toward zero
+        if kind == "i":
+            return FilterValue(t.to(torch.int64), "i", self.nulls)
+        # to uint64's biased form: u ^ 2^63 is u - 2^63 as int64, exact
+        # in float64 for u >= 2^63 (Sterbenz), and below through int64
+        big = t >= 9223372036854775808.0
+        lo = t.masked_fill(big, 0).to(torch.int64) ^ _BIAS
+        hi = (t.masked_fill(~big, 9223372036854775808.0)
+              - 9223372036854775808.0).to(torch.int64)
+        return FilterValue(torch.where(big, hi, lo), "u", self.nulls)
 
     # arithmetic
     def __add__(self, o):
@@ -133,10 +178,10 @@ class FilterValue:
 
     def __neg__(self):
         if self.kind == "f":
-            return FilterValue(-self.t, "f")
+            return FilterValue(-self.t, "f", self.nulls)
         if self.kind == "u":
-            return FilterValue((-self.raw()) ^ _BIAS, "u")
-        return FilterValue(-self.t.to(torch.int64), "i")
+            return FilterValue((-self.raw()) ^ _BIAS, "u", self.nulls)
+        return FilterValue(-self.t.to(torch.int64), "i", self.nulls)
 
     # comparisons
     def __eq__(self, o):
@@ -177,7 +222,18 @@ class FilterValue:
         if self.kind == "f":
             raise TypeError("~ takes a boolean or integer operand")
         # ~(u ^ 2^63) == (~u) ^ 2^63: the biased form inverts in place
-        return FilterValue(~self.t, self.kind)
+        return FilterValue(~self.t, self.kind, self.nulls)
+
+
+def _nulls(*operands):
+    """The NULLs of an operation on `operands`: valid where every one
+    is, an object array on the host where any one is."""
+    out = None
+    for o in operands:
+        n = o.nulls if isinstance(o, FilterValue) else None
+        if n is not None:
+            out = n if out is None else (out[0] & n[0], out[1] | n[1])
+    return out
 
 
 def _scalar_kind(x) -> str | None:
@@ -248,24 +304,26 @@ def _as(x, kind: str):
 def _arith(a, b, op):
     kind = _common(a, b)
     out = op(_tensor(_as(a, kind), a, b), _as(b, kind))
-    return FilterValue(out ^ _BIAS if kind == "u" else out, kind)
+    return FilterValue(out ^ _BIAS if kind == "u" else out, kind,
+                       _nulls(a, b))
 
 
 def _true_div(a, b):
     # numpy's `/` is float64 for every numeric pair
     return FilterValue(torch.div(_tensor(_as(a, "f"), a, b), _as(b, "f")),
-                       "f")
+                       "f", _nulls(a, b))
 
 
 def _floor_div(a, b):
     kind = _common(a, b)
     x, y = _tensor(_as(a, kind), a, b), _as(b, kind)
     if kind == "f":
-        return FilterValue(torch.floor(x / y), "f")
+        return FilterValue(torch.floor(x / y), "f", _nulls(a, b))
     if kind == "i":
-        return FilterValue(torch.div(x, y, rounding_mode="floor"), "i")
+        return FilterValue(torch.div(x, y, rounding_mode="floor"), "i",
+                           _nulls(a, b))
     q, _r = _udivmod(x, y)
-    return FilterValue(q ^ _BIAS, "u")
+    return FilterValue(q ^ _BIAS, "u", _nulls(a, b))
 
 
 def _udivmod(x: torch.Tensor, y):
@@ -306,39 +364,175 @@ def _compare(a, b, op):
                 else _as(v, kind) ^ _BIAS for v in (a, b))
     else:
         x, y = _as(a, kind), _as(b, kind)
-    return FilterValue(op(_tensor(x, a, b), y), "b")
+    return FilterValue(op(_tensor(x, a, b), y), "b", _nulls(a, b))
 
 
 def _bitwise(a, b, op):
     if _kind(a) == "b" and _kind(b) == "b":
         x, y = (v.t if isinstance(v, FilterValue) else bool(v)
                 for v in (a, b))
-        return FilterValue(op(_tensor(x, a, b), y), "b")
+        return FilterValue(op(_tensor(x, a, b), y), "b", _nulls(a, b))
     kind = _common(a, b)
     if kind == "f":
         raise TypeError("bitwise operators take boolean or integer operands")
     out = op(_tensor(_as(a, kind), a, b), _as(b, kind))
-    return FilterValue(out ^ _BIAS if kind == "u" else out, kind)
+    return FilterValue(out ^ _BIAS if kind == "u" else out, kind,
+                       _nulls(a, b))
 
 
-def filter_mask(v, n: int, device) -> torch.Tensor:
-    """A filter's value → the [n] torch.bool row mask. A boolean is
-    itself; an integer passes on its lowest bit, which is what the JAX
-    package's `row_mask & value` keeps; a float is refused as there."""
+def filter_key(x):
+    """A filter's whole structure as a hashable key (the fused program's
+    cache key): every field of every node with its type, so that nodes
+    that print the same SQL (`InList.null_present`, 1 against 1.0) key
+    different programs."""
+    if isinstance(x, Expr) and dataclasses.is_dataclass(x):
+        return (type(x).__name__,) + tuple(
+            filter_key(getattr(x, f.name)) for f in dataclasses.fields(x))
+    if isinstance(x, (list, tuple)):
+        return ("seq",) + tuple(filter_key(v) for v in x)
+    try:
+        hash(x)
+    except TypeError:
+        return (type(x).__name__, repr(x))
+    return (type(x).__name__, x)
+
+
+_NEGATED = {"=": "!=", "!=": "=", "<": ">=", "<=": ">", ">": "<=",
+            ">=": "<"}
+
+
+def row_mask(e: Expr, env: dict, xp: "TorchXP", n: int,
+             conjunctive: bool) -> torch.Tensor:
+    """Filter `e` → the [n] torch.bool mask of the rows where it is
+    definitely true, as the host branch takes them. A `conjunctive`
+    filter (ops/tpu_exec.is_conjunctive) also drops every row where one
+    of its columns is NULL, as the host does after the filter."""
+    v = _true(e, env, xp)
+    if not isinstance(v, FilterValue):
+        m = torch.full((n,), bool(v), dtype=torch.bool, device=xp.device)
+    else:
+        m = v.t if v.kind == "b" else v.raw() != 0
+        m = m.expand(n) if m.numel() == 1 else m
+    if conjunctive:
+        for c in sorted(e.columns()):
+            valid = env.get(f"__valid__:{c}")
+            if valid is not None:
+                m = m & valid
+    return m
+
+
+def _true(e: Expr, env: dict, xp: "TorchXP"):
+    """Where `e` is definitely true: a truth FilterValue, a Python bool
+    or int for a constant, or None for NULL. sql/expr.py's host
+    evaluation (an int where it gives one: its `!=` of two constants is
+    `~True`, -2, which AND and OR then combine bitwise):
+    AND and OR of their operands' definite truths (NULL if either is
+    NULL), NOT the definite falsehood of its operand, and any other node
+    its value where every operand is valid."""
+    if isinstance(e, BinOp) and e.op in ("and", "or"):
+        a, b = _true(e.left, env, xp), _true(e.right, env, xp)
+        if a is None or b is None:
+            return None
+        return a & b if e.op == "and" else a | b
+    if isinstance(e, UnaryOp) and e.op == "not":
+        f = _false(e.operand, env, xp)
+        if f is not None:
+            return f
+        if isinstance(e.operand, (BinOp, UnaryOp)) \
+                and e.operand.op in ("and", "or", "not"):
+            v = _true(e.operand, env, xp)
+            return v if v is None else (
+                not v if isinstance(v, bool) else ~v)
+        return _definite(e.operand.eval(env, xp), e.operand, env, xp,
+                         invert=True)
+    return _definite(e.eval(env, xp), e, env, xp)
+
+
+def _false(e: Expr, env: dict, xp: "TorchXP"):
+    """Where `e` is definitely false, or None where that is not derived
+    (sql/expr.py `_eval_false_mask`): a comparison's is the negated
+    comparison, IN's and BETWEEN's the negated node, so NaN is neither
+    true nor false under NOT, as on the host."""
+    if isinstance(e, BinOp):
+        if e.op in ("and", "or"):
+            fa, fb = _false(e.left, env, xp), _false(e.right, env, xp)
+            if fa is None or fb is None:
+                return None
+            return fa | fb if e.op == "and" else fa & fb
+        neg = _NEGATED.get(e.op)
+        return None if neg is None \
+            else _bool(_true(BinOp(neg, e.left, e.right), env, xp))
+    if isinstance(e, UnaryOp) and e.op == "not":
+        v = _true(e.operand, env, xp)
+        return v if isinstance(v, FilterValue) else None
+    if isinstance(e, Between):
+        return _bool(_true(Between(e.expr, e.low, e.high, not e.negated),
+                           env, xp))
+    if isinstance(e, InList):
+        return _bool(_true(InList(e.expr, e.values, not e.negated,
+                                  e.null_present), env, xp))
+    if isinstance(e, Column):
+        v = e.eval(env, xp)
+        return _definite(v, e, env, xp, invert=True) \
+            if isinstance(v, FilterValue) else None
+    if isinstance(e, Literal):
+        return None if e.value is None else (not bool(e.value))
+    return None
+
+
+def _bool(v):
+    """As `np.asarray(v, dtype=bool)` takes a constant."""
+    return bool(v) if isinstance(v, int) else v
+
+
+def _definite(v, e: Expr, env: dict, xp: "TorchXP", invert=False):
+    """Node `e`'s value `v` (negated, with `invert`) as a definite truth:
+    false where an integer x/0 made it NULL, and for a comparison, IN,
+    BETWEEN and a negated column false where one of the columns it reads
+    is NULL, where the host masks (`_mask_operand_validity`); any other
+    node keeps its value there, as on the host (a NULL slot holds 0). A
+    boolean is itself, an integer is true where it is not 0, as
+    `np.asarray(v, dtype=bool)` takes it; a float is refused, as the JAX
+    package's device branch refuses it."""
+    if v is None:
+        return None
     if isinstance(v, (bool, np.bool_)):
-        return torch.full((n,), bool(v), dtype=torch.bool, device=device)
+        return bool(v) != invert
+    if isinstance(v, (int, np.integer)):
+        return ~int(v) if invert else int(v)
     if isinstance(v, np.ndarray) and v.dtype.kind in "biu":
         # a host-evaluated constant predicate (LIKE over literals)
         kind = "b" if v.dtype == bool else "i"
         v = FilterValue(torch.as_tensor(
             v if kind == "b" else v.astype(np.int64),
-            device=device).reshape(-1), kind)
+            device=xp.device).reshape(-1), kind)
     if not isinstance(v, FilterValue):
         raise TypeError(f"a filter gave {type(v).__name__}, not a predicate")
     if v.kind == "f":
         raise TypeError("a filter gave float64 values, not a predicate")
-    m = v.t if v.kind == "b" else (v.raw() & 1) != 0
-    return m.expand(n) if m.numel() == 1 else m
+    m = v.t if v.kind == "b" else v.raw() != 0
+    if v.valid is not None:
+        # a NULL an integer x/0 made is false in a comparison, before
+        # BETWEEN's and IN's own negation (sql/expr.py `_obj_binop`)
+        if isinstance(e, (Between, InList)) and e.negated:
+            m = m | ~v.valid
+        else:
+            m = m & v.valid
+    if invert:
+        m = ~m
+    if isinstance(e, (Between, InList)) or invert and isinstance(e, Column) \
+            or isinstance(e, BinOp) and e.op in _NEGATED:
+        masked = m
+        for c in sorted(e.columns()):
+            valid = env.get(f"__valid__:{c}")
+            if valid is not None:
+                masked = masked & valid
+        if v.nulls is not None and isinstance(e, BinOp):
+            # a comparison of an object array returns before the host's
+            # column masking (sql/expr.py `BinOp.eval`, `_obj_binop`)
+            masked = torch.where(v.nulls[1], m, masked)
+        m = masked
+    return FilterValue(m, "b")
 
 
 # numpy names whose result is float64 for any numeric input
@@ -379,12 +573,42 @@ class TorchXP:
 
     def where(self, cond, a, b) -> FilterValue:
         c = self.asarray(cond)
-        c = c.as_kind("b").t
         kind = _common(a, b)
         if not isinstance(a, FilterValue) and not isinstance(b, FilterValue):
             kind = _kind(a) if _kind(a) == _kind(b) else kind
         x, y = (self._in(v, kind) for v in (a, b))
-        return FilterValue(torch.where(c, x, y), kind)
+        return FilterValue(torch.where(c.as_kind("b").t, x, y), kind,
+                           _nulls(c, a, b))
+
+    def null_where(self, cond, a) -> FilterValue:
+        """`a`, NULL where `cond` holds (sql/expr.py's integer x/0)."""
+        a, c = self.asarray(a), self.asarray(cond).as_kind("b")
+        ok = ~c.t if c.valid is None else ~c.t & c.valid
+        # the host holds the quotient as an object array, None at x/0,
+        # when any divisor is 0 (a NULL slot's 0 included)
+        return FilterValue(a.t, a.kind, _nulls(a, FilterValue(
+            c.t, "b", (ok, c.t.any()))))
+
+    def cast(self, a, kind: str, vm) -> tuple[FilterValue, bool]:
+        """sql/expr.py's strict CAST of a device value to a number or a
+        truth value, with numpy's conversions. → (the value, whether it
+        failed: NaN or ±inf to an integer, a negative to an unsigned).
+        A row where `vm` (the operand column's validity, None for
+        another operand) is false cannot fail, as on the host."""
+        a = self.asarray(a)
+        if kind not in _NP_DTYPE:
+            raise TypeError(f"a device filter cannot CAST to {kind!r}")
+        bad = None
+        if kind in "iu" and a.kind == "f":
+            bad = ~torch.isfinite(a.t)
+        if kind == "u" and a.kind in "if":
+            bad = a.t < 0 if bad is None else bad | (a.t < 0)
+        if bad is None:
+            return a.as_kind(kind), False
+        seen = bad if vm is None else bad & vm
+        failed = bool(seen.any())  # lint: disable=host-sync (a strict CAST that can fail raises as the host's does: one flag, only for float→integer and →unsigned)
+        safe = FilterValue(a.t.masked_fill(bad, 0), a.kind, a.nulls)
+        return safe.as_kind(kind), failed
 
     def _in(self, v, kind: str) -> torch.Tensor:
         """`v` in `kind`'s stored form (uint64 biased, booleans as
@@ -405,22 +629,23 @@ class TorchXP:
     def isnan(self, a) -> FilterValue:
         a = self.asarray(a)
         if a.kind == "f":
-            return FilterValue(torch.isnan(a.t), "b")
-        return FilterValue(torch.zeros_like(a.t, dtype=torch.bool), "b")
+            return FilterValue(torch.isnan(a.t), "b", a.nulls)
+        return FilterValue(torch.zeros_like(a.t, dtype=torch.bool), "b",
+                           a.nulls)
 
     def abs(self, a) -> FilterValue:
         a = self.asarray(a)
         if a.kind == "u":
             return a
         kind = "f" if a.kind == "f" else "i"
-        return FilterValue(torch.abs(_as(a, kind)), kind)
+        return FilterValue(torch.abs(_as(a, kind)), kind, a.nulls)
 
     def _int_kept(self, a, op) -> FilterValue:
         # jax.numpy's floor/ceil/trunc/round return an integer unchanged
         a = self.asarray(a)
         if a.kind != "f":
             return a.as_kind("i") if a.kind == "b" else a
-        return FilterValue(op(a.t), "f")
+        return FilterValue(op(a.t), "f", a.nulls)
 
     def floor(self, a):
         return self._int_kept(a, torch.floor)
@@ -440,13 +665,15 @@ class TorchXP:
         return self._int_kept(a, lambda t: torch.round(t, decimals=d))
 
     def cbrt(self, a) -> FilterValue:
-        t = self.asarray(a).f64()
+        a = self.asarray(a)
+        t = a.f64()
         return FilterValue(torch.sign(t) * torch.pow(torch.abs(t),
-                                                     1.0 / 3.0), "f")
+                                                     1.0 / 3.0), "f", a.nulls)
 
     def arctan2(self, a, b) -> FilterValue:
         return FilterValue(torch.atan2(*(self.asarray(v).f64()
-                                         for v in (a, b))), "f")
+                                         for v in (a, b))), "f",
+                           _nulls(a, b))
 
     def fmod(self, a, b) -> FilterValue:
         """C's remainder; an integer remainder by 0 is 0, as in
@@ -454,29 +681,30 @@ class TorchXP:
         kind = _common(a, b)
         x, y = self._in(a, kind), self._in(b, kind)
         if kind == "f":
-            return FilterValue(torch.fmod(x, y), "f")
+            return FilterValue(torch.fmod(x, y), "f", _nulls(a, b))
         if kind == "u":
             _q, r = _udivmod(x ^ _BIAS, y ^ _BIAS)
-            return FilterValue(r ^ _BIAS, "u")
+            return FilterValue(r ^ _BIAS, "u", _nulls(a, b))
         zero = y == 0
         r = torch.fmod(x, torch.where(zero, 1, y))
-        return FilterValue(torch.where(zero, 0, r), "i")
+        return FilterValue(torch.where(zero, 0, r), "i", _nulls(a, b))
 
     def power(self, a, b) -> FilterValue:
         kind = _common(a, b)
         x, y = self._in(a, kind), self._in(b, kind)
         if kind == "u":
-            return FilterValue(torch.pow(x ^ _BIAS, y ^ _BIAS) ^ _BIAS, "u")
+            return FilterValue(torch.pow(x ^ _BIAS, y ^ _BIAS) ^ _BIAS, "u",
+                               _nulls(a, b))
         if kind == "i" and not isinstance(b, FilterValue) and int(b) < 0:
             # jax.numpy refuses a negative integer literal exponent
             raise TypeError("integers cannot be raised to negative powers")
-        return FilterValue(torch.pow(x, y), kind)
+        return FilterValue(torch.pow(x, y), kind, _nulls(a, b))
 
     def _int_pair(self, a, b, op) -> FilterValue:
         a, b = self.asarray(a), self.asarray(b)
         if "f" in (a.kind, b.kind):
             raise TypeError("gcd/lcm take integer operands")
-        return FilterValue(op(_as(a, "i"), _as(b, "i")), "i")
+        return FilterValue(op(_as(a, "i"), _as(b, "i")), "i", _nulls(a, b))
 
     def gcd(self, a, b):
         return self._int_pair(a, b, torch.gcd)
@@ -490,26 +718,28 @@ class TorchXP:
             raise AttributeError(name)
 
         def call(a):
-            return FilterValue(fn(self.asarray(a).f64()), "f")
+            a = self.asarray(a)
+            return FilterValue(fn(a.f64()), "f", a.nulls)
         return call
 
 
-def filter_env(dbatch: DeviceBatch, names, device) -> dict:
+def filter_env(dbatch: DeviceBatch, names) -> dict:
     """The environment a filter evaluates in: each column a FilterValue
     of its SQL type (a BOOLEAN a truth value, an UNSIGNED its biased
-    int64 from the staging), plus its `__valid__:` mask."""
+    int64 from the staging), and the `__valid__:` mask of each column
+    that has NULLs. A column's NULLs ride in that mask, not in its
+    value's validity: as on the host, a node is masked by the validity of
+    the columns it reads once it is evaluated, after BETWEEN's or IN's
+    negation. A NULL slot holds 0, as the host's does."""
     env = {}
     for name in names:
         vt, vals, valid = dbatch.fields[name]
-        if vt == ValueType.BOOLEAN:
-            v = FilterValue(vals != 0, "b")
-        elif vt == ValueType.UNSIGNED:
-            v = FilterValue(vals, "u")
-        else:
-            v = FilterValue(vals, "f" if vals.dtype.is_floating_point
-                            else "i")
-        env[name] = v
-        env[f"__valid__:{name}"] = (
-            valid if valid is not None
-            else torch.ones(vals.shape, dtype=torch.bool, device=device))
+        kind = "b" if vt == ValueType.BOOLEAN else (
+            "u" if vt == ValueType.UNSIGNED else (
+                "f" if vals.dtype.is_floating_point else "i"))
+        if valid is not None:
+            vals = vals.masked_fill(~valid, -(1 << 63) if kind == "u" else 0)
+        env[name] = FilterValue(vals != 0 if kind == "b" else vals, kind)
+        if valid is not None:
+            env[f"__valid__:{name}"] = valid
     return env

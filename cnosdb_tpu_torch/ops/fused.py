@@ -18,10 +18,10 @@ directly from the int64 timestamp offset t = ts - E:
 which equals the i32 form `offset + floor((sec + rA_s + carry) / I_s)`
 term for term (floor division, so negative offsets round down too).
 
-Filters run through `Expr.eval(env, xp)` over the batch's columns as
-`device_filter.FilterValue`s, with `device_filter.TorchXP` as `xp`: the
-operators and numpy names sql/expr.py calls, computed in numpy's types on
-the device.
+Filters run through `device_filter.row_mask` (AND, OR and NOT walked as
+the host branch walks them) over the batch's columns as `FilterValue`s,
+with `device_filter.TorchXP` as `xp`: sql/expr.py's operators and numpy
+names, computed in numpy's types on the device.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ import torch
 
 from ..sql.expr import Expr
 from .device_cache import DeviceBatch
-from .device_filter import TorchXP, filter_env, filter_mask
+from .device_filter import TorchXP, filter_env, filter_key, row_mask
 from .kernels import local_segment_partials, pad_segments
 
 _kernel_cache: dict = {}
@@ -71,25 +71,22 @@ class PendingFused:
     """A launched (asynchronous) fused program; fetch() pulls the single
     packed output matrix in ONE device→host copy and unpacks it."""
 
-    __slots__ = ("dev_out", "manifest", "num_segments", "int_cols", "agg_cols")
+    __slots__ = ("dev_out", "manifest", "num_segments", "int_slots", "agg_cols")
 
-    def __init__(self, dev_out, manifest, num_segments, int_cols, agg_cols):
+    def __init__(self, dev_out, manifest, num_segments, int_slots, agg_cols):
         self.dev_out = dev_out
         self.manifest = manifest
         self.num_segments = num_segments
-        self.int_cols = int_cols
+        self.int_slots = int_slots
         self.agg_cols = agg_cols
 
     def fetch(self) -> dict[str, dict]:
         mat = self.dev_out.cpu().numpy()  # lint: disable=host-sync (audited transfer point: the [n_slots, ns_pad] matrix, one pull per program)
+        bits = mat.view(np.int64)
         out: dict[str, dict] = {}
         for i, (col, agg) in enumerate(self.manifest):
-            row = mat[i, :self.num_segments]
-            if agg == "count" or agg.endswith("_rank") or col in self.int_cols:
-                # exact below 2^53; integer sums beyond that would lose
-                # precision in the packed f64 transfer (documented limit)
-                row = row.astype(np.int64)
-            out.setdefault(col, {})[agg] = row
+            src = bits if self.int_slots[i] else mat
+            out.setdefault(col, {})[agg] = src[i, :self.num_segments]
         presence = out.get("__presence__", {}).get("count")
         if presence is not None:
             # all-valid columns elide their count slot (it IS presence); a
@@ -108,7 +105,7 @@ def launch_fused(dbatch: DeviceBatch, filter_expr: Expr | None,
     num_segments = n_groups * n_buckets
     ns_pad = pad_segments(max(num_segments, 1))
 
-    filter_key = filter_expr.to_sql() if filter_expr is not None else ""
+    flt_key = filter_key(filter_expr)
     cols_key = tuple(sorted((c, tuple(sorted(w.items())))
                             for c, w in col_wants.items()))
     # ship every column the program touches: aggregated ones AND columns
@@ -123,15 +120,17 @@ def launch_fused(dbatch: DeviceBatch, filter_expr: Expr | None,
     need_rank = any(w.get("want_first") or w.get("want_last")
                     for w in col_wants.values())
     valid_flags = tuple(dbatch.fields[n][2] is not None for n in present)
-    key = (filter_key, cols_key, dtypes_key, ns_pad, n_buckets,
+    int_cols = frozenset(name for name in present if not dbatch.fields[
+        name][1].dtype.is_floating_point)
+    key = (flt_key, cols_key, dtypes_key, ns_pad, n_buckets,
            use_bucket, i_s, dbatch.n_pad, need_rank, valid_flags)
     entry = _kernel_cache.get(key)
     if entry is None:
         entry = _build_kernel(filter_expr, col_wants, tuple(present), ns_pad,
                               n_buckets, use_bucket, i_s, need_rank,
-                              valid_flags)
+                              valid_flags, int_cols)
         _kernel_cache[key] = entry
-    fn, manifest = entry
+    fn, manifest, int_slots = entry
 
     ns = max(dbatch.n_series, 1)
     gos = np.zeros(ns, dtype=np.int64)
@@ -139,19 +138,20 @@ def launch_fused(dbatch: DeviceBatch, filter_expr: Expr | None,
     dev = dbatch.ts_rel.device
     dev_out = fn(dbatch, torch.from_numpy(gos).to(dev),
                  ra_s * NS_PER_SEC + ra_ns, offset)
-    int_cols = {name for name in present
-                if not dbatch.fields[name][1].dtype.is_floating_point}
     agg_cols = tuple(n for n in present if n in col_wants)
-    return PendingFused(dev_out, manifest, num_segments, int_cols, agg_cols)
+    return PendingFused(dev_out, manifest, num_segments, int_slots, agg_cols)
 
 
 def _build_kernel(filter_expr: Expr | None, col_wants: dict,
                   present: tuple, ns_pad: int, n_buckets: int,
                   use_bucket: bool, i_s: int, need_rank: bool,
-                  valid_flags: tuple):
-    """→ (program, manifest). The program packs every partial into ONE
-    [n_slots, ns_pad] float64 matrix so the host fetches a single copy;
-    f64 holds counts and i32 ranks exactly (< 2^53)."""
+                  valid_flags: tuple, int_cols: frozenset):
+    """→ (program, manifest, int_slots). The program packs every partial
+    into ONE [n_slots, ns_pad] float64 matrix so the host fetches a single
+    copy; an integer slot (int_slots[i]) carries its int64 bits, so an
+    int64 sum, min or max comes back exact at any magnitude."""
+    from .tpu_exec import is_conjunctive
+
     manifest: list[tuple[str, str]] = [("__presence__", "count")]
     agg_cols = [n for n in present if n in col_wants]
     valid_of = dict(zip(present, valid_flags))
@@ -167,7 +167,10 @@ def _build_kernel(filter_expr: Expr | None, col_wants: dict,
                 manifest.append((name, agg))
                 if agg in ("first", "last"):
                     manifest.append((name, agg + "_rank"))
+    int_slots = tuple(agg == "count" or agg.endswith("_rank")
+                      or col in int_cols for col, agg in manifest)
     interval = i_s * NS_PER_SEC
+    conjunctive = filter_expr is not None and is_conjunctive(filter_expr)
 
     def program(dbatch: DeviceBatch, group_of_series, ra: int, offset: int):
         dev = dbatch.ts_rel.device
@@ -176,13 +179,8 @@ def _build_kernel(filter_expr: Expr | None, col_wants: dict,
         n = dbatch.n_pad
         mask = torch.arange(n, device=dev) < dbatch.n_rows
         if filter_expr is not None:
-            fmask = filter_expr.eval(filter_env(dbatch, present, dev),
-                                     TorchXP(dev))
-            mask = mask & filter_mask(fmask, n, dev)
-            # null operands exclude rows (host path does the same)
-            for c in filter_expr.columns():
-                if c in fields and fields[c][1] is not None:
-                    mask = mask & fields[c][1]
+            mask = mask & row_mask(filter_expr, filter_env(dbatch, present),
+                                   TorchXP(dev), n, conjunctive)
         sid = dbatch.sid_ordinal
         if use_bucket:
             bucket = offset + torch.div(dbatch.ts_rel + ra, interval,
@@ -217,7 +215,9 @@ def _build_kernel(filter_expr: Expr | None, col_wants: dict,
                 part["count"] = presence
             for agg, arr in part.items():
                 results[(name, agg)] = arr
-        return torch.stack([results[slot].to(torch.float64)
-                            for slot in manifest])
+        return torch.stack([
+            results[slot].to(torch.int64).view(torch.float64) if is_int
+            else results[slot].to(torch.float64)
+            for slot, is_int in zip(manifest, int_slots)])
 
-    return program, manifest
+    return program, manifest, int_slots

@@ -1207,22 +1207,39 @@ def _device_eligible(batch: ScanBatch, query: TpuQuery,
                      col_wants: dict, dense_span: int) -> bool:
     """Fused device path applies when the whole query is expressible over
     device-resident numeric columns (no strings/tags in filter or aggs, no
-    IS NULL, dense bucket range)."""
+    IS NULL, no TRY_CAST or cast to a string or timestamp, dense bucket
+    range)."""
+    from ..sql.expr import _CAST_KINDS, Cast, iter_child_exprs
+
     if dense_span > _DENSE_BUCKET_LIMIT:
         return False
     for cname in col_wants:
         if cname == "time":
             return False   # i64 timestamps never ride to device; host path
         f = batch.fields.get(cname)
+        if f is None and any(k is not None and k.tag_value(cname) is not None
+                             for k in batch.series_keys):
+            # a TAGS column aggregates from the series keys on the host;
+            # a field absent from this batch stays (count 0, else NULL)
+            return False
         if f is not None and f[0] in (ValueType.STRING, ValueType.GEOMETRY):
             return False
         if f is not None and f[0] == ValueType.UNSIGNED:
-            # the packed single-transfer output is f64; u64 values above
-            # 2^53 would round — the host kernel path is exact (biased i64)
+            # the host kernel path is exact (biased i64); the fused
+            # program's int64 slots would carry it exactly too, but no
+            # test holds that yet
             return False
     if query.filter is not None:
         if _contains_is_null(query.filter):
             return False
+        todo = [query.filter]
+        while todo:
+            e = todo.pop()
+            if isinstance(e, Cast) and (
+                    e.safe or _CAST_KINDS.get(e.target.upper()) not in
+                    ("i", "u", "f", "b")):
+                return False   # TRY_CAST, strings and timestamps: host
+            todo.extend(iter_child_exprs(e))
         for c in query.filter.columns():
             f = batch.fields.get(c)
             if c == "time":

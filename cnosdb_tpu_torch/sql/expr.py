@@ -224,15 +224,20 @@ def _div(xp, a, b):
             out = np.asarray(q).astype(object)
             out[np.asarray(zero)] = None
             return out
+        if xp is not np:
+            # a device filter's x/0 is NULL too: not valid there (None
+            # for two constants, as above)
+            if zero is True and getattr(q, "shape", None) == ():
+                return None
+            return xp.null_where(zero, q)
         return xp.where(b != 0, q, 0)
-    if xp is np:
-        # IEEE semantics for scalar constants too (1.0/0 → inf, 0.0/0 →
-        # nan — same as the column path), and no warning spam in logs
-        with np.errstate(divide="ignore", invalid="ignore"):
-            if np.isscalar(a) and np.isscalar(b):
-                return float(np.float64(a) / np.float64(b))
-            return a / b
-    return a / b
+    # IEEE semantics for scalar constants too (1.0/0 → inf, 0.0/0 →
+    # nan — same as the column path), on either branch, and no warning
+    # spam in logs
+    with np.errstate(divide="ignore", invalid="ignore"):
+        if np.isscalar(a) and np.isscalar(b):
+            return float(np.float64(a) / np.float64(b))
+        return a / b
 
 
 def _is_int(v):
@@ -2245,6 +2250,16 @@ class Cast(Expr):
         v = self.expr.eval(env, xp)
         if v is None:
             return None
+        if xp is not np and not self.safe and not np.isscalar(v) \
+                and not isinstance(v, (np.ndarray, DictArray)):
+            # a device filter's value: the same conversions there, and a
+            # failed one raises as below
+            out, failed = xp.cast(v, kind, env.get(
+                f"__valid__:{self.expr.name}")
+                if isinstance(self.expr, Column) else None)
+            if failed:
+                raise PlanError("CAST failed: NaN/Inf/negative to integer")
+            return out
         if isinstance(v, DictArray):
             def cast_u(x):
                 try:

@@ -390,6 +390,16 @@ REWRITTEN = {
                         "scan_vnode", "_mem_series_ids",
                         "_scan_vnode_native", "_plan_series",
                         "_discover_fields"},
+    # the device branch answers as the host branch: an integer x/0 in a
+    # device filter is NULL (it was 0) and a constant float division by
+    # zero is IEEE (it raised ZeroDivisionError); a strict CAST of a
+    # device value runs on the device with the host's conversions and
+    # failure (it raised TypeError)
+    "sql/expr.py": {"_div", "Cast.eval"},
+    # the fused program declines an aggregate of a TAGS column (it
+    # answered 0 or NULL, the tag read as an absent field), TRY_CAST and
+    # casts to strings and timestamps
+    "ops/tpu_exec.py": {"_device_eligible"},
 }
 # per file: functions and classes of the original that the port drops
 DROPPED = {

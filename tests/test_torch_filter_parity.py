@@ -6,9 +6,11 @@ the whole uint64 range, BOOLEAN b with NULLs, a tag h), written once by
 cnosdb_tpu, is queried through both packages' device branches, run on the
 CPU as tests/test_torch_slice.py runs them (the JAX package's Pallas
 kernels in interpret mode). Every filter gives the same count per tag in
-both, or an error of the same type in both. The filters cover every operator of
-sql/expr.py's _BIN_OPS, NOT, IS NULL, BETWEEN, IN and the math functions
-it sends through its `xp` namespace, with the literals and columns mixed
+both, or an error of the same type in both; where the reference's device
+branch disagrees with its own host branch, the port's gives the host's.
+The filters cover every operator of sql/expr.py's _BIN_OPS, NOT, IS
+NULL, BETWEEN, IN and the math functions it sends through its `xp`
+namespace, with the literals and columns mixed
 the ways numpy and torch promote differently: an int64 column with a
 float literal (float32 in torch), int64 / int64, a bool column in `~`,
 uint64 above 2^63 (a literal of 2^63 or more is an OverflowError in
@@ -180,11 +182,21 @@ def _counts(ex, filt, port: bool):
 
 
 def _agree(pair, filt):
+    """The port's device branch gives the reference's device answer, or,
+    where the reference's device and host branches disagree, its host
+    answer: the port's device branch answers as the host branch (NULLs
+    under OR and NOT, where the reference's device branch loses rows)."""
     from cnosdb_tpu_torch.ops import fused
 
     before = fused.launch_count
     got = _counts(pair[1], filt, port=True)
     ref = _counts(pair[0], filt, port=False)
+    if got != ref:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.delenv("CNOSDB_TPU_FORCE_DEVICE_PATH")
+            host = _counts(pair[0], filt, port=False)
+        if host != ref:
+            ref = host
     assert got == ref, filt
     return ref, fused.launch_count > before
 
