@@ -98,12 +98,17 @@ Phases, in order:
      held back, keys acked through the new leader, whose scans are then
      slowed past the hedge floor, and one read with no wait through the
      third node holding every acked key with no hedge fired, the lag it
-     forced logged; a seeded symmetric partition around one node (all
-     three answer, the cut-off node from its own replicas, each answer
-     against the oracle; the other two take the clients' writes; after
-     the heal the node of tsbs's live leaders engages its lane first with
-     the all-local answers, and the history checker is green on every
-     node); no vnode marked BROKEN in any node's view of meta after each
+     forced logged; the same through the node that holds no member of
+     dcx (SHARD 1 REPLICA 2), whose scan is a leader read: the static
+     leader's raft messages delayed, keys acked through the new leader,
+     one read with no wait holding every acked key, a redirect booked,
+     the static leader's lag logged; a seeded symmetric partition around
+     one node (all three answer, the cut-off node from its own replicas,
+     each answer against the oracle; the other two take the clients'
+     writes; after the heal the node of tsbs's live leaders engages its
+     lane first with the all-local answers, and the history checker is
+     green on every node); no vnode marked BROKEN in any node's view of
+     meta after each
      heal and after the restart;
      a SIGKILL and restart of one node, read as it comes back with no
      flush or compaction first: its first read decodes its own files on
@@ -2070,6 +2075,10 @@ SCANS_LOCAL = "rpc.send:fail:if=scan_vnode"
 # the read-your-writes step slows the live leader's scans by this much,
 # past the 25 ms hedge floor
 LEADER_SCAN_DELAY_MS = 200
+# the outsider step delays the static leader's raft messages by this
+# much: a group of two members commits only with its ack, so it holds
+# every acked entry and applies it only when a later message arrives
+STATIC_RAFT_DELAY_MS = 2000
 # the restarted node's memory cache after catch-up: only the dcw rows
 # written while it was down belong there
 MEMCACHE_LIMIT = 1 << 20
@@ -2364,14 +2373,14 @@ class Clients:
     def read(self, node) -> set:
         s = f"r{node.node_id}"
         e = self.rec.invoke(s, "read", durable=False, mono=True)
-        keys = cw_keys(node)
+        keys = table_keys(node)
         self.rec.ok(s, e, keys=sorted(keys))
         return keys
 
 
-def cw_keys(node) -> set:
-    return {r[0] for r in csv_rows(node.sql("SELECT DISTINCT k FROM cw",
-                                            db="dcw"))}
+def table_keys(node, db: str = "dcw", table: str = "cw") -> set:
+    return {r[0] for r in csv_rows(node.sql(f"SELECT DISTINCT k FROM {table}",
+                                            db=db))}
 
 
 def wait_keys(node, want: set, timeout: float = 60.0) -> set:
@@ -2379,7 +2388,7 @@ def wait_keys(node, want: set, timeout: float = 60.0) -> set:
     write may have landed too), or at the timeout."""
     deadline = time.monotonic() + timeout
     while True:
-        got = cw_keys(node)
+        got = table_keys(node)
         if want <= got or time.monotonic() > deadline:
             return got
         time.sleep(0.3)
@@ -2712,7 +2721,7 @@ def read_your_writes(cluster, clients) -> dict:
         # take it for a read that went back in time)
         scans_local(s_node, True)
         try:
-            s_keys = cw_keys(s_node)
+            s_keys = table_keys(s_node)
         finally:
             scans_local(s_node, False)
     finally:
@@ -2755,6 +2764,154 @@ def read_your_writes(cluster, clients) -> dict:
         f"{s_applied} on the static leader against {l_applied} on the "
         f"live leader; the static leader's own replica lacked "
         f"{res['static_lacks']} acked keys")
+    return res
+
+
+def write_keys(node, db: str, table: str, keys: list) -> bool:
+    """Keys `keys` written into `db`.`table` through the node, sent again
+    while raft drops them in a leadership change → whether they were
+    acked (False only after five tries)."""
+    body = "\n".join(f"{table},k={key} v=1 {BASE_TS + int(key[1:]) * 1000}"
+                     for key in keys)
+    for _attempt in range(5):
+        try:
+            node.write_lp(body, db=db)
+            return True
+        except AssertionError as e:
+            if not any(m in str(e) for m in RETRIED_WRITE_ERRORS):
+                raise
+    return False
+
+
+def leader_read_counts(node) -> dict:
+    """The node's leader-read counters (/debug/health): its reads of the
+    replica sets it holds no member of, through their raft leaders."""
+    return json.loads(node.http("GET", "/debug/health"))["counters"].get(
+        "leader_read", {})
+
+
+def outsider_reads(cluster) -> dict:
+    """Step 7's read through a node that holds no member of a group: dcx
+    (SHARD 1 REPLICA 2) has one replica set, on two of the three nodes.
+    Its raft leadership sits on its static leader S while the third node
+    O reads once (O remembers S as the group's leader), then moves to the
+    other member L. S's raft traffic is held back: L's raft messages to
+    S are delayed by STATIC_RAFT_DELAY_MS (with two members a commit
+    needs S's ack, so S holds every acked entry in its log, and applies
+    it only when a later message brings the commit). Keys are acked
+    through L, and O reads once, with no wait: its scan asks S for a
+    leader read and is redirected to L. The read must hold every acked
+    key and no key that was never written, and O must have booked a
+    redirect. S's applied index lags L's at the read, and the acked keys
+    S's own replica lacks are logged. → the step's JSON."""
+    from cnosdb_tpu_torch.parallel.net import rpc_call
+
+    owner = "cnosdb.dcx"
+    by_id = {n.node_id: n for n in cluster.nodes}
+    acked: list = []
+    keys_n = [0]
+
+    def write(node, k: int) -> int:
+        keys = [f"x{keys_n[0] + i}" for i in range(k)]
+        keys_n[0] += k
+        if write_keys(node, "dcx", "cx", keys):
+            acked.extend(keys)
+            return k
+        return 0
+
+    write(cluster.nodes[0], 5)
+    wait_leaders(cluster, {owner: 1})
+    (rs,) = replica_sets(cluster.nodes[0], (owner,))
+    members = {v["node_id"]: v["id"] for v in rs["vnodes"]}
+    s_node = by_id[rs["leader_node_id"]]
+    (l_node,) = [by_id[nid] for nid in members if nid != s_node.node_id]
+    (o_node,) = [n for n in cluster.nodes if n.node_id not in members]
+    l_vid = members[l_node.node_id]
+    t0 = time.perf_counter()
+    stepped = lead_on(cluster, owner, s_node)
+    first = table_keys(o_node, "dcx", "cx")
+    if not set(acked) <= first:
+        raise AssertionError(f"node {o_node.node_id}'s read of {owner} led "
+                             f"from its static leader misses "
+                             f"{sorted(set(acked) - first)}")
+    stepped += lead_on(cluster, owner, l_node)
+    deadline = time.monotonic() + 30.0
+    while not any(k.startswith(f"{owner}/") and m["leader_id"] == l_vid
+                  for k, m in json.loads(s_node.http(
+                      "GET", "/debug/health"))["raft_members"].items()):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"node {s_node.node_id} never followed "
+                                 f"{owner}'s leader vnode {l_vid}")
+        time.sleep(0.05)
+    moved_s = time.perf_counter() - t0
+
+    hold = (f"seed={NEMESIS_SEED};rpc.send:delay({STATIC_RAFT_DELAY_MS}):"
+            f"if=127.0.0.1:{s_node.rpc_port} raft_msg")
+    rpc_call(f"127.0.0.1:{l_node.rpc_port}", "_faults", {"spec": hold},
+             timeout=5.0)
+    try:
+        before = leader_read_counts(o_node)
+        t = time.perf_counter()
+        new = write(l_node, 10)
+        write_ms = (time.perf_counter() - t) * 1e3
+        if not new:
+            raise AssertionError(f"no key acked through node "
+                                 f"{l_node.node_id}")
+        (s_applied,) = [a for *_r, a in raft_state(s_node,
+                                                   (owner,)).values()]
+        (l_applied,) = [a for *_r, a in raft_state(l_node,
+                                                   (owner,)).values()]
+        t = time.perf_counter()
+        keys = table_keys(o_node, "dcx", "cx")
+        read_ms = (time.perf_counter() - t) * 1e3
+        after = leader_read_counts(o_node)
+        # S's own replica, read by S with its scans kept local
+        scans_local(s_node, True)
+        try:
+            s_keys = table_keys(s_node, "dcx", "cx")
+        finally:
+            scans_local(s_node, False)
+    finally:
+        rpc_call(f"127.0.0.1:{l_node.rpc_port}", "_faults",
+                 {"spec": f"seed={NEMESIS_SEED}"}, timeout=5.0)
+    counts = {k: after.get(k, 0) - before.get(k, 0)
+              for k in ("read", "redirect", "no_leader")}
+    missing = set(acked) - keys
+    written = {f"x{i}" for i in range(keys_n[0])}
+    if missing or not keys <= written:
+        raise AssertionError(
+            f"node {o_node.node_id}'s read misses {len(missing)} acked keys "
+            f"{sorted(missing)[:5]} and holds {sorted(keys - written)} "
+            f"never written (the live leader node {l_node.node_id} applied "
+            f"{l_applied}, the static leader node {s_node.node_id} "
+            f"{s_applied}; its leader reads {counts})")
+    if counts["redirect"] < 1:
+        raise AssertionError(f"node {o_node.node_id} booked no redirect: "
+                             f"{counts}")
+    if s_applied >= l_applied:
+        raise AssertionError(f"the static leader node {s_node.node_id} "
+                             f"applied {s_applied} >= the live leader's "
+                             f"{l_applied}: the step forced no lag")
+    wait_caught_up(s_node, (owner,), (l_node,))
+    res = {"static_node": s_node.node_id, "leader_node": l_node.node_id,
+           "reader_node": o_node.node_id, "stepdowns": stepped,
+           "moved_s": moved_s, "acked_keys": len(acked), "new_keys": new,
+           "write_ms": write_ms, "static_applied": s_applied,
+           "leader_applied": l_applied, "read_ms": read_ms,
+           "leader_reads": counts,
+           "static_lacks": len(set(acked) - s_keys)}
+    log(f"# outsider read: {owner} (SHARD 1 REPLICA 2) on nodes "
+        f"{sorted(members)}, node {o_node.node_id} holds no member; its "
+        f"raft leadership moved off the static leader node "
+        f"{s_node.node_id} to node {l_node.node_id} ({stepped} stepdowns, "
+        f"{moved_s:.2f}s), node {s_node.node_id}'s raft traffic delayed "
+        f"{STATIC_RAFT_DELAY_MS} ms, {new} keys acked through node "
+        f"{l_node.node_id} in {write_ms:.1f} ms; node {o_node.node_id}'s "
+        f"one read with no wait ({read_ms:.1f} ms; leader reads {counts}) "
+        f"holds all {len(acked)} acked keys and none never written; "
+        f"forced lag at the read: applied index {s_applied} on the static "
+        f"leader against {l_applied} on the live leader; the static "
+        f"leader's own replica lacked {res['static_lacks']} acked keys")
     return res
 
 
@@ -2824,6 +2981,9 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
         n1 = cluster.nodes[0]
         n1.sql("CREATE DATABASE tsbs WITH SHARD 4 REPLICA 3", db="public")
         n1.sql("CREATE DATABASE dcw WITH SHARD 1 REPLICA 3", db="public")
+        # one replica set on two of the three nodes: the third node's
+        # reads of it are leader reads
+        n1.sql("CREATE DATABASE dcx WITH SHARD 1 REPLICA 2", db="public")
 
         # data: line protocol over HTTP, batches spread over the nodes
         data = Data(seed, rows)
@@ -3032,6 +3192,8 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
 
         # read-your-writes through a node that does not lead
         out["read_your_writes"] = read_your_writes(cluster, clients)
+        # read-your-writes through a node that holds no member
+        out["outsider_reads"] = outsider_reads(cluster)
 
         # partition: a symmetric partition around one node. Every node
         # answers, the cut-off one from its own replicas, and the other

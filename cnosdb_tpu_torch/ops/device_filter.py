@@ -22,11 +22,13 @@ numpy arrays. Each function here mirrors these of sql/expr.py, and a
 change to one side's rules goes to the other in the same change:
 
 - `_true`: `BinOp.eval` for AND and OR, `UnaryOp.eval` for NOT (a
-  constant's `not`, and `~` of an int, -2 for `~True`);
+  constant's `not`, and `~` of an int);
 - `_false`: `_eval_false_mask`;
-- `_definite`: `_mask_operand_validity` as `BinOp.eval`, `InList.eval`,
-  `Between.eval` and `_eval_false_mask` (a negated column) call it, and
-  `_obj_binop`'s object-array comparison, which skips that mask;
+- `_definite`: `_mask_operand_validity` as `BinOp.eval`, `InList.eval`
+  and `_eval_false_mask` (a negated column) call it, and `_obj_binop`'s
+  object-array comparison, which skips that mask;
+- `TorchXP.truths`: `_cmp_truths`, the true and the false rows of each
+  comparison of a BETWEEN;
 - `TorchXP.null_where`: `_div`'s integer x/0;
 - `row_mask`'s conjunctive mask: ops/tpu_exec.py `host_row_mask`'s mask
   after the filter.
@@ -424,8 +426,7 @@ def row_mask(e: Expr, env: dict, xp: "TorchXP", n: int,
 def _true(e: Expr, env: dict, xp: "TorchXP"):
     """Where `e` is definitely true: a truth FilterValue, a Python bool
     or int for a constant, or None for NULL. sql/expr.py's host
-    evaluation (an int where it gives one: its `!=` of two constants is
-    `~True`, -2, which AND and OR then combine bitwise):
+    evaluation (an int where it gives one, as `NOT` of an integer):
     AND and OR of their operands' definite truths (NULL if either is
     NULL), NOT the definite falsehood of its operand, and any other node
     its value where every operand is valid."""
@@ -513,14 +514,15 @@ def _definite(v, e: Expr, env: dict, xp: "TorchXP", invert=False):
     m = v.t if v.kind == "b" else v.raw() != 0
     if v.valid is not None:
         # a NULL an integer x/0 made is false in a comparison, before
-        # BETWEEN's and IN's own negation (sql/expr.py `_obj_binop`)
-        if isinstance(e, (Between, InList)) and e.negated:
+        # IN's own negation (sql/expr.py `_obj_binop`)
+        if isinstance(e, InList) and e.negated:
             m = m | ~v.valid
         else:
             m = m & v.valid
     if invert:
         m = ~m
-    if isinstance(e, (Between, InList)) or invert and isinstance(e, Column) \
+    # BETWEEN masks each of its comparisons itself (`TorchXP.truths`)
+    if isinstance(e, InList) or invert and isinstance(e, Column) \
             or isinstance(e, BinOp) and e.op in _NEGATED:
         masked = m
         for c in sorted(e.columns()):
@@ -622,6 +624,24 @@ class TorchXP:
             x = x ^ _BIAS
         return torch.as_tensor(x, dtype=_TORCH_DTYPE[kind],
                                device=self.device)
+
+    def truths(self, r, env: dict, columns) -> tuple:
+        """A comparison's value `r` → (where it is true, where it is
+        false), neither where an integer x/0 made an operand NULL or one
+        of `columns` (those its operands read) is NULL (sql/expr.py
+        `_cmp_truths`, the host's)."""
+        if not isinstance(r, FilterValue):
+            r = bool(r)
+            return r, not r
+        known = r.valid
+        for c in sorted(columns):
+            valid = env.get(f"__valid__:{c}")
+            if valid is not None:
+                known = valid if known is None else known & valid
+        true, false = r.t, ~r.t
+        if known is not None:
+            true, false = true & known, false & known
+        return FilterValue(true, "b"), FilterValue(false, "b")
 
     def all(self, a) -> FilterValue:
         return FilterValue(torch.all(self.asarray(a).as_kind("b").t), "b")

@@ -51,6 +51,10 @@ CB_COOLDOWN = float(os.environ.get("CNOSDB_CB_COOLDOWN", "2.0"))
 # this fraction of the hop's timeout absolves accumulated failures — a
 # single crawl-speed success from a browning-out node must not rearm it.
 CB_BURN_FRACTION = float(os.environ.get("CNOSDB_CB_BURN_FRACTION", "0.5"))
+# A leader read's budget for reaching the raft leader through redirects
+# and the backoff of an election: the scan RPC's own timeout, capped by
+# the request's deadline
+LEADER_READ_TIMEOUT_S = 10.0
 
 
 @dataclass
@@ -74,6 +78,9 @@ class PlacedSplit:
     alternates: list = field(default_factory=list)
     # replicas meta marks BROKEN: data-suspect until the repair clears it
     broken_ids: set = field(default_factory=set)
+    # a replicated set read by a node that holds no member of it: the
+    # scan asks for the group's raft leader and follows its redirects
+    leader_read: bool = False
 
 
 class Coordinator:
@@ -96,6 +103,9 @@ class Coordinator:
         self.node_id = node_id if node_id is not None else meta.node_id
         self._replica_mgr = None  # built on first multi-replica write
         self._replica_mgr_lock = lockwatch.Lock("coord.replica_mgr")
+        # (owner, replica set id) → the vnode last seen leading it, for
+        # the leader reads of the sets this node holds no member of
+        self._leaders_seen: dict = {}
         # set by sql/matview.MatviewEngine; serves matview_partials RPCs
         self.matview_maintainer = None
         # ScanBatch snapshots keyed by vnode data_version: repeated queries
@@ -679,8 +689,16 @@ class Coordinator:
                 # static leader may be a follower that has not applied the
                 # tail of the log since an election
                 live = self._live_leader_vnode(owner, rs)
+                # a node with no member of a replicated set has no view of
+                # its raft leader: its scan asks the leader it last saw
+                # (else meta's static one) and follows the redirects
+                outsider = live is None and len(rs.vnodes) > 1 \
+                    and all(v.node_id != self.node_id for v in rs.vnodes)
                 if live is not None:
                     vnode_id = live
+                elif outsider:
+                    vnode_id = self._leader_seen(owner, rs) or vnode_id
+                candidate = vnode_id
                 # prefer a RUNNING replica over a broken-marked leader
                 v = rs.vnode(vnode_id)
                 if v is not None and v.status == VnodeStatus.BROKEN:
@@ -713,6 +731,7 @@ class Coordinator:
                                     alternates=running + broken)
                 split.broken_ids = {a.id for a in rs.vnodes
                                     if a.status == VnodeStatus.BROKEN}
+                split.leader_read = outsider and vnode_id == candidate
                 splits.append(split)
         return splits
 
@@ -735,6 +754,71 @@ class Coordinator:
         if v is None or v.status == VnodeStatus.COPYING:
             return None
         return live
+
+    def _leader_seen(self, owner: str, rs) -> int | None:
+        """The vnode that answered this node's last leader read of the
+        replicated set, if it still names a vnode of the set that is not
+        COPYING."""
+        from ..models.meta_data import VnodeStatus
+
+        vid = self._leaders_seen.get((owner, rs.id))
+        v = rs.vnode(vid) if vid is not None else None
+        if v is None or v.status == VnodeStatus.COPYING:
+            return None
+        return vid
+
+    def _leader_scan(self, split: PlacedSplit, payload: dict,
+                     hedge: bool = False) -> dict:
+        """A leader read of `split` (PlacedSplit.leader_read): the scan
+        RPC with the `leader_read` flag, at the planned vnode first. A
+        member that does not lead answers not-leader with the leader it
+        follows, and the scan goes there; with no leader known (an
+        election on, or a hint already tried) it backs off and asks
+        again, until the request's deadline or the scan RPC's timeout
+        runs out (CoordinatorError). → the reply of the member that led.
+        RpcUnavailable / RpcError from the member asked last propagate:
+        the caller fails over to the alternates, as for a live leader
+        that does not answer."""
+        from ..models.meta_data import VnodeStatus
+
+        deadline = time.monotonic() + deadline_mod.cap_current(
+            LEADER_READ_TIMEOUT_S)
+        bo = Backoff(initial=0.05, cap=1.0)
+        hit = self.meta.find_vnode(split.vnode_id)
+        rs = hit[2] if hit is not None else None
+        vnode_id, node_id = split.vnode_id, split.node_id
+        asked = set()
+        health.count_leader_read("read")
+        while True:
+            deadline_mod.check_current()
+            asked.add(vnode_id)
+            r = self._rpc(node_id, "scan_vnode",
+                          {**payload, "vnode_id": vnode_id,
+                           "leader_read": True}, hedge=hedge)
+            if not r.get("not_leader"):
+                if rs is not None:
+                    self._leaders_seen[(split.owner, rs.id)] = vnode_id
+                return r
+            hint = r.get("hint")
+            v = rs.vnode(hint) if rs is not None and hint is not None \
+                else None
+            if v is not None and v.status == VnodeStatus.COPYING:
+                v = None
+            if v is not None and v.id not in asked:
+                health.count_leader_read("redirect")
+            else:
+                # no leader named, or stale hints that lead back: wait
+                # for the group to settle, then ask again
+                health.count_leader_read("no_leader")
+                if not bo.sleep(deadline):
+                    raise CoordinatorError(
+                        f"no raft leader of the replica set of vnode "
+                        f"{split.vnode_id} of {split.owner} answered a "
+                        f"leader read (last asked vnode {vnode_id}, hint "
+                        f"{hint})")
+                asked.clear()
+            if v is not None:
+                vnode_id, node_id = v.id, v.node_id
 
     def _split_tier(self, owner: str, vnode_id: int, node_id: int) -> str:
         """COLD iff the (locally-placed) vnode has object-store-tiered
@@ -1220,7 +1304,7 @@ class Coordinator:
 
         last_unreach = None
         last_reject = None
-        for vnode_id, node_id in targets:
+        for i, (vnode_id, node_id) in enumerate(targets):
             if node_id == self.node_id:
                 if self.engine.vnode(split.owner, vnode_id) is None:
                     # placement says local but the data is absent (dropped /
@@ -1229,15 +1313,21 @@ class Coordinator:
                 alt = PlacedSplit(split.owner, vnode_id, split.table,
                                   split.time_ranges, split.tag_domains)
                 return self._scan_local(alt, field_names)
+            payload = {
+                "owner": split.owner, "vnode_id": vnode_id,
+                "table": split.table,
+                "trs": split.time_ranges.to_wire(),
+                "doms": split.tag_domains.to_wire(),
+                "field_names": field_names,
+                "fp": fingerprint,
+            }
             try:
-                r = self._rpc(node_id, "scan_vnode", {
-                    "owner": split.owner, "vnode_id": vnode_id,
-                    "table": split.table,
-                    "trs": split.time_ranges.to_wire(),
-                    "doms": split.tag_domains.to_wire(),
-                    "field_names": field_names,
-                    "fp": fingerprint,
-                })
+                if i == 0 and split.leader_read:
+                    # the failover below reads the alternates as a member
+                    # node's read of a silent live leader does
+                    r = self._leader_scan(split, payload)
+                else:
+                    r = self._rpc(node_id, "scan_vnode", payload)
             except RpcUnavailable as e:
                 # this node could not reach the replica: _rpc's breaker
                 # and the health scorer book it for this node alone. Meta
@@ -1318,8 +1408,8 @@ class Coordinator:
         next_target = 0
         armed = True          # one suppression verdict per scan
         hit = self.meta.find_vnode(split.vnode_id)
-        leader_read = hit is not None and self._live_leader_vnode(
-            split.owner, hit[2]) == split.vnode_id
+        leader_read = split.leader_read or hit is not None and \
+            self._live_leader_vnode(split.owner, hit[2]) == split.vnode_id
         last_unreach = last_reject = None
         throttled_idxs: list[int] = []   # slow-start-refused targets
 
@@ -1355,14 +1445,20 @@ class Coordinator:
                             resq.put((idx, "local",
                                       self._scan_local(alt, field_names)))
                             return
-                        r = self._rpc(node_id, "scan_vnode", {
+                        payload = {
                             "owner": split.owner, "vnode_id": vnode_id,
                             "table": split.table,
                             "trs": split.time_ranges.to_wire(),
                             "doms": split.tag_domains.to_wire(),
                             "field_names": field_names,
                             "fp": fingerprint,
-                        }, hedge=bypass_ramp)
+                        }
+                        if idx == 0 and split.leader_read:
+                            r = self._leader_scan(split, payload,
+                                                  hedge=bypass_ramp)
+                        else:
+                            r = self._rpc(node_id, "scan_vnode", payload,
+                                          hedge=bypass_ramp)
                         resq.put((idx, "remote", r))
                 except RpcUnavailable as e:
                     # a peer this node cannot reach (booked by _rpc's

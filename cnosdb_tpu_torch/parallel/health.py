@@ -484,6 +484,25 @@ def count_breaker(node, state: str, n: int = 1) -> None:
         _counters[k] = _counters.get(k, 0) + n
 
 
+def count_leader_read(outcome: str, n: int = 1) -> None:
+    """Leader-read accounting: a node that holds no member of a
+    replicated group reads it through the group's raft leader
+    (Coordinator._leader_scan). `read` (one such scan), `redirect` (a
+    member that does not lead named the leader, and the scan went
+    there), `no_leader` (no leader was named: the scan backed off and
+    asked again)."""
+    with _ctr_lock:
+        k = ("leader_read", outcome, "")
+        _counters[k] = _counters.get(k, 0) + n
+
+
+def leader_read_counters() -> dict:
+    """→ {outcome: n} of count_leader_read."""
+    with _ctr_lock:
+        return {k[1]: v for k, v in _counters.items()
+                if len(k) == 3 and k[0] == "leader_read"}
+
+
 def counters_snapshot() -> tuple[dict, dict]:
     """→ (hedge counters {(outcome, reason): n},
           breaker counters {(node, state): n})."""

@@ -508,6 +508,7 @@ class RaftNode:
         with self.lock:
             self.term += 1
             self.role = Role.CANDIDATE
+            self.leader_id = None
             self.voted_for = self.node_id
             self.log.save_hard_state(self.term, self.voted_for)
             term = self.term
@@ -661,6 +662,11 @@ class RaftNode:
 
     def _step_down(self, term: int):
         with self.lock:
+            if term > self.term or self.role == Role.LEADER:
+                # a new term's leader is unknown until it is heard from:
+                # a stale leader_id (this member itself, once it led) is
+                # the hint NotLeader and a leader read would follow
+                self.leader_id = None
             if term > self.term:
                 self.term = term
                 self.voted_for = None

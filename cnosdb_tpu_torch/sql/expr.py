@@ -97,7 +97,7 @@ _BIN_OPS = {
     # not python/numpy floor-mod: -7 % 3 = -1
     "%": lambda xp, a, b: xp.fmod(a, b),
     "=": lambda xp, a, b: _eq(xp, a, b),
-    "!=": lambda xp, a, b: ~_eq(xp, a, b),
+    "!=": lambda xp, a, b: _ne(xp, a, b),
     "<": lambda xp, a, b: a < b,
     "<=": lambda xp, a, b: a <= b,
     ">": lambda xp, a, b: a > b,
@@ -251,6 +251,46 @@ def _eq(xp, a, b):
     return a == b
 
 
+def _ne(xp, a, b):
+    # two Python scalars compare to a Python bool, whose `~` is an int
+    # (-2 for True) that a filter takes as true
+    eq = _eq(xp, a, b)
+    return (not eq) if isinstance(eq, bool) else ~eq
+
+
+def _none_mask(v):
+    """Where an object array holds None (an integer x/0, a NULL-bearing
+    column), else False."""
+    if _is_obj_arr(v):
+        return np.array([x is None for x in v], dtype=bool)
+    return False
+
+
+def _cmp_truths(op: str, env, xp, ea, a, eb, b):
+    """The comparison `a op b` of the values of expressions `ea`, `eb`
+    → (where it is true, where it is false) under three-valued logic:
+    neither where an operand is NULL (a NULL constant, an object array's
+    None, an integer x/0 on the device, a NULL slot of a column either
+    side reads). A NaN compares false, so it is false, as `~` of the
+    comparison took it."""
+    if a is None or b is None:
+        return False, False
+    f = _BIN_OPS[op]
+    if xp is not np:
+        return xp.truths(f(xp, a, b), env, ea.columns() | eb.columns())
+    if _is_obj_arr(a) or _is_obj_arr(b) or isinstance(a, DictArray) \
+            or isinstance(b, DictArray):
+        r = _obj_binop(op, f, xp, a, b)
+        known = np.logical_not(_none_mask(a) | _none_mask(b))
+    else:
+        r = f(xp, a, b)
+        known = True
+    true = r & known
+    false = ((not r) if isinstance(r, (bool, np.bool_)) else ~r) & known
+    return (_mask_operand_validity(true, env, ea, eb),
+            _mask_operand_validity(false, env, ea, eb))
+
+
 def _is_obj_arr(v) -> bool:
     return isinstance(v, np.ndarray) and v.dtype == object
 
@@ -369,11 +409,10 @@ class BinOp(Expr):
                 return out
         a = self.left.eval(env, xp)
         b = self.right.eval(env, xp)
-        if xp is np and (_is_obj_arr(a) or _is_obj_arr(b)):
-            return _obj_binop(self.op, f, xp, a, b)
         if a is None or b is None:
             # SQL three-valued logic: NULL compares unknown (false as a
-            # filter, e.g. an empty scalar subquery); NULL arithmetic is
+            # filter, e.g. an empty scalar subquery or an integer x/0 of
+            # two constants, against any operand); NULL arithmetic is
             # NULL
             if self.op in ("=", "!=", "<", "<=", ">", ">="):
                 other = b if a is None else a
@@ -382,6 +421,8 @@ class BinOp(Expr):
                     return xp.zeros(shape, dtype=bool)
                 return False
             return None
+        if xp is np and (_is_obj_arr(a) or _is_obj_arr(b)):
+            return _obj_binop(self.op, f, xp, a, b)
         if self.op in ("=", "!=", "<", "<=", ">", ">=") and xp is np:
             # timestamp-column vs date/timestamp-string comparison:
             # coerce the literal to i64 ns (DataFusion's implicit
@@ -662,7 +703,12 @@ class InList(Expr):
     def eval(self, env, xp):
         v = self.expr.eval(env, xp)
         if self.negated and self.null_present:
-            return xp.zeros(getattr(v, "shape", (1,)), dtype=bool)
+            # a constant operand gives a constant (a one-row mask would
+            # be broadcast to every row)
+            shape = getattr(v, "shape", None)
+            return xp.zeros(shape, dtype=bool) if shape else False
+        if v is None:
+            return False    # NULL [NOT] IN (...) is NULL
         m = self._isin_fast(v, xp)
         if m is None:
             for lit in self.values:
@@ -734,20 +780,15 @@ class Between(Expr):
             v2, lo = _coerce_ts_cmp(v, lo)
             v2, hi = _coerce_ts_cmp(v, hi)
             v = v2
-        if xp is np and any(
-                _is_obj_arr(x) or isinstance(x, DictArray)
-                for x in (v, lo, hi)):
-            # NULL-bearing object operands (lower(NULL) etc) go through
-            # the 3VL comparison path — raw >= would TypeError on None
-            m = (_obj_binop(">=", _BIN_OPS[">="], xp, v, lo)
-                 & _obj_binop("<=", _BIN_OPS["<="], xp, v, hi))
-        else:
-            m = (v >= lo) & (v <= hi)
-        out = ~m if self.negated else m
-        if xp is np:
-            out = _mask_operand_validity(out, env, self.expr,
-                                         self.low, self.high)
-        return out
+        # v >= lo AND v <= hi, each comparison true, false or NULL: a
+        # NULL operand (an integer x/0, a NULL constant or column) makes
+        # BETWEEN NULL unless the other comparison settles it, and NOT
+        # BETWEEN is true only where one comparison is false
+        ge, not_ge = _cmp_truths(">=", env, xp, self.expr, v, self.low, lo)
+        le, not_le = _cmp_truths("<=", env, xp, self.expr, v, self.high, hi)
+        if self.negated:
+            return not_ge | not_le
+        return ge & le
 
     def columns(self):
         return self.expr.columns() | self.low.columns() | self.high.columns()

@@ -285,7 +285,25 @@ SUBS = {
          "write\n",
          "        self._replica_mgr = None  # built on first multi-replica "
          "write\n        self._replica_mgr_lock = lockwatch.Lock("
-         "\"coord.replica_mgr\")\n"),
+         "\"coord.replica_mgr\")\n"
+         "        # (owner, replica set id) → the vnode last seen leading it, "
+         "for\n        # the leader reads of the sets this node holds no "
+         "member of\n        self._leaders_seen: dict = {}\n"),
+        # a node with no member of a replicated set reads it through the
+        # set's raft leader (Coordinator._leader_scan)
+        ("    broken_ids: set = field(default_factory=set)\n",
+         "    broken_ids: set = field(default_factory=set)\n"
+         "    # a replicated set read by a node that holds no member of it: "
+         "the\n    # scan asks for the group's raft leader and follows its "
+         "redirects\n    leader_read: bool = False\n"),
+        ('CB_BURN_FRACTION = float(os.environ.get("CNOSDB_CB_BURN_FRACTION",'
+         ' "0.5"))\n',
+         'CB_BURN_FRACTION = float(os.environ.get("CNOSDB_CB_BURN_FRACTION",'
+         ' "0.5"))\n'
+         "# A leader read's budget for reaching the raft leader through "
+         "redirects\n# and the backoff of an election: the scan RPC's own "
+         "timeout, capped by\n# the request's deadline\n"
+         "LEADER_READ_TIMEOUT_S = 10.0\n"),
         ("    # replicas currently marked BROKEN (self-heal on a successful "
          "scan)\n",
          "    # replicas meta marks BROKEN: data-suspect until the repair "
@@ -303,7 +321,10 @@ SUBS = {
          '        "floor": lambda xp, a: _math_float(xp, xp.floor(a)),\n'
          '        "ceil": lambda xp, a: _math_float(xp, xp.ceil(a)),\n'),
         ('        "trunc": lambda xp, a: xp.trunc(a),\n',
-         '        "trunc": lambda xp, a: _math_float(xp, xp.trunc(a)),\n')],
+         '        "trunc": lambda xp, a: _math_float(xp, xp.trunc(a)),\n'),
+        # `!=` of two Python scalars is a SQL boolean (`~True` is -2)
+        ('    "!=": lambda xp, a, b: ~_eq(xp, a, b),\n',
+         '    "!=": lambda xp, a, b: _ne(xp, a, b),\n')],
     # the fallback reason of a series whose memory rows overlap its file
     "storage/scan.py": [
         ("""#                 cannot touch it (decodes via Python over the block cache)
@@ -338,7 +359,13 @@ REWRITTEN = {
     # of the log, so a read through a third node missed acked rows; and
     # a read planned at the live leader is never hedged (_rank_targets'
     # docstring says so): the hedge read a follower, whose answer, first
-    # in on a loaded card, missed rows the leader had acked
+    # in on a loaded card, missed rows the leader had acked; a node that
+    # holds no member of a replicated set reads it through the set's raft
+    # leader (table_vnodes marks the split a leader read and starts it at
+    # the leader the node last saw, the scan lanes follow the redirects
+    # and never hedge such a read): it read meta's static leader, which
+    # after an election may lack the tail of the log, so on a cluster
+    # with fewer replicas than nodes an acked write could go unread
     "parallel/coordinator.py": {"Coordinator._upload_hook",
                                 "Coordinator._decode_hook",
                                 "Coordinator.replica_manager",
@@ -347,6 +374,9 @@ REWRITTEN = {
                                 "Coordinator._scan_remote_solo",
                                 "Coordinator._scan_remote_hedged",
                                 "Coordinator._mark_vnode_broken"},
+    # a leader read at a member that does not lead is answered with a
+    # redirect to the leader it follows, not scanned
+    "parallel/node_service.py": {"DataNodeService._scan_vnode"},
     # the wire query id names its tracker: ids from 1 in every process
     # collided in peers' cancel tombstones (a restarted node's queries
     # were refused as cancelled)
@@ -378,9 +408,13 @@ REWRITTEN = {
     # stayed leaderless for 180 s on the card); a candidate draws its
     # election deadline again after a round that outlived it, so two
     # candidates waiting out a silent peer do not split votes in lockstep
+    # a member forgets the leader when its term moves on, and a candidate
+    # or a deposed leader names none: its stale leader_id (itself, once
+    # it led) was the hint a NotLeader and a leader read's redirect took
     "parallel/raft.py": {"RaftNode.__init__", "RaftNode._tick_loop",
                          "RaftNode._start_election", "RaftNode._prevote",
-                         "RaftNode._on_request_prevote"},
+                         "RaftNode._on_request_prevote",
+                         "RaftNode._step_down"},
     # a scan reads the memory caches up to the applied watermark it took
     # under the vnode lock (raft's apply during catch-up tore a series'
     # timestamps from its fields: HTTP 500, "could not broadcast input
@@ -394,8 +428,15 @@ REWRITTEN = {
     # device filter is NULL (it was 0) and a constant float division by
     # zero is IEEE (it raised ZeroDivisionError); a strict CAST of a
     # device value runs on the device with the host's conversions and
-    # failure (it raised TypeError)
-    "sql/expr.py": {"_div", "Cast.eval"},
+    # failure (it raised TypeError); an operation of two constants gives
+    # SQL's answer on the host as on the device: `NOT (0 = 0)` and
+    # `1 NOT BETWEEN 0 AND 2` were `~True`, -2, and matched every row, a
+    # comparison with an integer x/0 of two constants (`(i / i) != (0 /
+    # 0)`) matched the rows of an object array, `(i / 0) NOT BETWEEN -2
+    # AND 1` matched NULLs, a NULL constant in BETWEEN raised TypeError,
+    # and `2 NOT IN (2, NULL)` returned a one-row mask that kept every row
+    "sql/expr.py": {"_div", "Cast.eval", "BinOp.eval", "Between.eval",
+                    "InList.eval"},
     # the fused program declines an aggregate of a TAGS column (it
     # answered 0 or NULL, the tag read as an absent field), TRY_CAST and
     # casts to strings and timestamps
@@ -433,7 +474,14 @@ ADDED = {
     "parallel/replica.py": {"_resume_index", "open_local_members"},
     # the live raft leader as the node sees it, for the planner and the
     # hedge lane
-    "parallel/coordinator.py": {"Coordinator._live_leader_vnode"},
+    "parallel/coordinator.py": {"Coordinator._live_leader_vnode",
+                                "Coordinator._leader_seen",
+                                "Coordinator._leader_scan"},
+    # the leader reads: the not-leader answer, and their counters
+    "parallel/node_service.py": {"DataNodeService._leader_elsewhere"},
+    "parallel/health.py": {"count_leader_read", "leader_read_counters"},
+    # three-valued `!=` and BETWEEN of two constants and of NULLs
+    "sql/expr.py": {"_ne", "_none_mask", "_cmp_truths"},
     "storage/scan.py": {"_mem_snapshot"},
     "storage/memcache.py": {"SeriesData.prefix"},
 }

@@ -268,11 +268,13 @@ def test_absent_field_aggregate_still_rides_x2(pair):
 
 
 # ---------------------------------------------------------------- (c)
-# Every node of a random filter reads a column: the host branch
-# evaluates an operation of two constants with Python scalars, where it
-# has faults of its own that the device does not copy (`0 != 0` is
-# `~True`, -2, so true; `(i / 0) BETWEEN -2 AND 1` raises TypeError). A
-# zero divisor comes from the data instead (j holds zeros, i - i).
+# Every node of these random filters reads a column, and they are held
+# to the JAX package's host branch. It evaluates an operation of two
+# constants with Python scalars, where it keeps faults the port repairs
+# (`0 != 0` is `~True`, -2, so true; a comparison with an integer x/0 of
+# two constants matches rows): (e) generates those operations and holds
+# them to Python's answer. Here a zero divisor comes from the data (j
+# holds zeros, i - i).
 NUM_COLS = ("i", "j", "f", "g")
 COL_EXPRS = NUM_COLS + ("CAST(g AS BIGINT)", "CAST(i AS DOUBLE)",
                         "CAST(b AS BIGINT)")
@@ -355,3 +357,151 @@ def test_int64_sums_and_extremes_are_exact_through_x2(pair):
     assert {-(2**63), 2**63 - 1} <= {x for w in want for x in w[1:3]}
     filtered = _same_as_host(pair, "SELECT sum(s) FROM w WHERE m > 0")
     assert filtered == [(sum(x for x, y in zip(s, m) if y > 0),)]
+
+
+# ---------------------------------------------------------------- (e)
+# Operations of two constants, held to SQL's answer computed here in
+# Python, on both branches of the port (the JAX package's host branch
+# keeps the faults). An integer x/0 is NULL, a float one IEEE.
+CONST_LITS = NUM_LITS + ("0",)
+
+
+def _lit(text: str):
+    return float(text) if "." in text else int(text)
+
+
+def _arith_value(a, op: str, b):
+    """`a op b` of two SQL constants: integers stay integers (`/`
+    truncates toward zero, x/0 is NULL), a float on either side is
+    float64."""
+    if op == "/" and isinstance(a, int) and isinstance(b, int):
+        if b == 0:
+            return None
+        q = abs(a) // abs(b)
+        return q if (a < 0) == (b < 0) else -q
+    with np.errstate(all="ignore"):
+        x, y = np.float64(a), np.float64(b)
+        r = {"+": x + y, "-": x - y, "*": x * y, "/": x / y}[op]
+    if isinstance(a, int) and isinstance(b, int):
+        return int(r)
+    return float(r)
+
+
+# every (a op b) of two constants: its SQL text and value
+CONST_EXPRS = [(f"({a} {op} {b})", _arith_value(_lit(a), op, _lit(b)))
+               for a in CONST_LITS for op in "+-*/" for b in CONST_LITS]
+NULL_EXPRS = [e for e in CONST_EXPRS if e[1] is None]
+_CMP = {"=": lambda x, y: x == y, "!=": lambda x, y: x != y,
+        "<": lambda x, y: x < y, "<=": lambda x, y: x <= y,
+        ">": lambda x, y: x > y, ">=": lambda x, y: x >= y}
+
+
+def _not3(p):
+    return None if p is None else not p
+
+
+def _and3(p, q):
+    if p is False or q is False:
+        return False
+    return None if p is None or q is None else True
+
+
+def _or3(p, q):
+    if p is True or q is True:
+        return True
+    return None if p is None or q is None else False
+
+
+def _cmp3(x, op, y):
+    return None if x is None or y is None else bool(_CMP[op](x, y))
+
+
+def _const_pred(depth: int):
+    """A predicate whose value is one constant: its SQL text and that
+    value (True, False or None for NULL)."""
+    const = st.sampled_from(CONST_EXPRS + [(t, _lit(t)) for t in NUM_LITS])
+    cmp = st.builds(lambda a, op, b: (f"{a[0]} {op} {b[0]}",
+                                      _cmp3(a[1], op, b[1])),
+                    const, st.sampled_from(sorted(_CMP)), const)
+    # a column compared with an integer x/0 of two constants: NULL on
+    # every row, whichever side
+    null_cmp = st.builds(
+        lambda a, op, n, flip: ((f"{n[0]} {op} {a}" if flip
+                                 else f"{a} {op} {n[0]}"), None),
+        _num(1), st.sampled_from(sorted(_CMP)), st.sampled_from(NULL_EXPRS),
+        st.booleans())
+
+    def between(v, neg, lo, hi):
+        inside = _and3(_cmp3(v[1], ">=", lo[1]), _cmp3(v[1], "<=", hi[1]))
+        return (f"{v[0]}{' NOT' if neg else ''} BETWEEN {lo[0]} AND "
+                f"{hi[0]}", _not3(inside) if neg else inside)
+
+    btw = st.builds(between, const, st.booleans(), const, const)
+
+    def in_list(v, neg, vals, null):
+        hit = None if v[1] is None else (
+            True if any(v[1] == x[1] for x in vals)
+            else (None if null else False))
+        items = [x[0] for x in vals] + (["NULL"] if null else [])
+        return (f"{v[0]}{' NOT' if neg else ''} IN ({', '.join(items)})",
+                _not3(hit) if neg else hit)
+
+    inl = st.builds(in_list, const, st.booleans(),
+                    st.lists(const, min_size=1, max_size=3), st.booleans())
+    leaf = st.one_of(cmp, cmp, null_cmp, btw, inl)
+    if depth == 0:
+        return leaf
+    sub = _const_pred(depth - 1)
+    return st.one_of(
+        leaf,
+        st.builds(lambda p: (f"NOT ({p[0]})", _not3(p[1])), sub),
+        st.builds(lambda p, op, q: (
+            f"({p[0]}) {op} ({q[0]})",
+            (_and3 if op == "AND" else _or3)(p[1], q[1])), sub,
+            st.sampled_from(["AND", "OR"]), sub))
+
+
+TWO_CONSTANT_PROBES = {
+    "ne_of_equal_constants": ("0 != 0", False),
+    "not_eq_of_equal_constants": ("NOT (0 = 0)", False),
+    "int_div_zero_between": ("(i / 0) BETWEEN -2 AND 1", None),
+    "int_div_zero_not_between": ("(i / 0) NOT BETWEEN -2 AND 1", None),
+    "ne_int_div_zero_of_constants": ("(i / i) != (0 / 0)", None),
+    "not_between_of_constants": ("1 NOT BETWEEN 0 AND 2", False),
+    "null_constant_between": ("(1 / 0) BETWEEN -2 AND 1", None),
+    "null_constant_not_in": ("(0 / 0) NOT IN (1, 2)", None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TWO_CONSTANT_PROBES))
+def test_two_constant_probe_gives_the_sql_answer(pair, name):
+    from cnosdb_tpu_torch.ops import fused
+
+    p, value = TWO_CONSTANT_PROBES[name]
+    want = [(N if value else 0,)]
+    sql = f"SELECT count(*) FROM t WHERE {p}"
+    before = fused.launch_count
+    assert _answer(pair[1], sql, port=True) == want, sql
+    assert fused.launch_count > before or not value
+    assert _answer(pair[1], sql, port=True, device=False) == want, sql
+
+
+@seed(20261018)
+@settings(max_examples=60, deadline=None, database=None,
+          suppress_health_check=list(HealthCheck))
+@given(p=_const_pred(2), c=_pred(1),
+       shape=st.sampled_from(["P", "P AND C", "P OR C", "NOT (P AND C)",
+                              "NOT (P OR C)"]))
+def test_two_constant_operations_give_the_sql_answer(pair, p, c, shape):
+    """A filter `shape` of a predicate P whose value is one constant
+    (Python's SQL answer) and a column predicate C: both branches of the
+    port keep the rows that the JAX package's host branch keeps for the
+    same filter with P replaced by a column predicate of that value on
+    every row (it answers those right)."""
+    where = shape.replace("P", "({p})").replace("C", "({c})")
+    sql = f"SELECT h, count(*) FROM t WHERE {where} GROUP BY h ORDER BY h"
+    twin = {True: "j = j", False: "j != j", None: "j > NULL"}[p[1]]
+    want = _answer(pair[0], sql.format(p=twin, c=c), port=False)
+    sql = sql.format(p=p[0], c=c)
+    assert _answer(pair[1], sql, port=True) == want, sql
+    assert _answer(pair[1], sql, port=True, device=False) == want, sql

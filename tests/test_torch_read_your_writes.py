@@ -8,9 +8,11 @@ follower that has not applied the tail of the log. The planner used to
 follow the live leader only on the node whose own member led, and every
 other node read the static leader, so a read through a third node could
 miss rows the cluster had acknowledged. Each node that holds a member
-of the group now follows the leader that member sees; a node with no
-member of the group has no view of its leader and keeps meta's static
-one.
+of the group now follows the leader that member sees. A node with no
+member of the group has no view of its leader: its scan is a leader
+read, which a member that does not lead answers with a redirect to the
+leader it follows (or, while the group elects, with no hint: the read
+backs off and asks again).
 
 The clusters here are in-process: every node its own engine,
 Coordinator, node RPC service on 127.0.0.1 and raft replica manager
@@ -23,12 +25,15 @@ port to the guarantee itself.
 """
 import itertools
 import os
+import threading
 import time
 
 import numpy as np
 import pytest
 
 from cnosdb_tpu_torch import faults
+from cnosdb_tpu_torch.errors import (CoordinatorError, DeadlineExceeded,
+                                     ReplicationError)
 from cnosdb_tpu_torch.models.meta_data import VnodeStatus
 from cnosdb_tpu_torch.models.points import SeriesRows, WriteBatch
 from cnosdb_tpu_torch.models.predicate import ColumnDomains, TimeRanges
@@ -49,6 +54,10 @@ TABLE = "cpu"
 HOSTS = [f"h{i}" for i in range(8)]
 ROWS = 20            # points a host in each write
 WAIT_S = 20.0        # elections, catch-up and plans settling, loaded host
+# a write raft did not commit before a leadership change, or not within
+# its propose timeout while the group elected (not acked either way)
+UNACKED = ("entry superseded after leadership change", "propose timeout",
+           "no reachable leader for replica set")
 _QIDS = itertools.count()
 
 
@@ -81,7 +90,9 @@ class RaftCluster:
     def write(self, nid: int) -> dict:
         """ROWS new points a host, written through node `nid`'s
         coordinator; they join `acked` once the write returns → the
-        rows written."""
+        rows written. A write that raft did not commit, elections under
+        way on a loaded host, was not acked: it is sent again, as a
+        client does (rewriting the same points is idempotent)."""
         ts = [self.next_ts + i for i in range(ROWS)]
         self.next_ts += ROWS
         wb, rows = WriteBatch(), {}
@@ -91,7 +102,15 @@ class RaftCluster:
                 SeriesKey(TABLE, {"host": h}), ts,
                 {"v": (int(ValueType.FLOAT), v.tolist())}))
             rows.update({(h, t): x for t, x in zip(ts, v)})
-        self.coords[nid].write_points(DEFAULT_TENANT, DB, wb)
+        deadline = time.monotonic() + WAIT_S
+        while True:
+            try:
+                self.coords[nid].write_points(DEFAULT_TENANT, DB, wb)
+                break
+            except (ReplicationError, CoordinatorError) as e:
+                if not any(m in str(e) for m in UNACKED) \
+                        or time.monotonic() > deadline:
+                    raise
         self.acked.update(rows)
         return rows
 
@@ -137,19 +156,32 @@ class RaftCluster:
                        for m in self.members(rs).values())
         self.wait(f"group {rs.id} caught up", done)
 
+    def led_off(self, rs, away: int) -> int | None:
+        """The node whose member leads the group, if one does and it is
+        not `away`; a member on `away` that leads steps down (on a loaded
+        host raft may elect it again at any time)."""
+        lead = self.leader_node(rs)
+        if lead == away:
+            self.member(away, rs).stepdown()
+            return None
+        return lead
+
     def lead_off(self, rs, away: int) -> int:
         """Leadership of the group on a node other than `away`, with
         every member following it → the leader's node."""
-        if self.leader_node(rs) == away:
-            self.member(away, rs).stepdown()
-        self.wait(f"group {rs.id} led off node {away}",
-                  lambda: self.leader_node(rs) not in (None, away))
-        lead = self.leader_node(rs)
-        lvid = self.member(lead, rs).node_id
-        self.wait(f"group {rs.id} following vnode {lvid}", lambda: all(
-            m.leader_id == lvid for nid, m in self.members(rs).items()
-            if nid != lead))
-        return lead
+        led = []
+
+        def settled():
+            lead = self.led_off(rs, away)
+            if lead is None:
+                return False
+            lvid = self.member(lead, rs).node_id
+            led[:] = [lead]
+            return all(m.leader_id == lvid
+                       for nid, m in self.members(rs).items() if nid != lead)
+        self.wait(f"group {rs.id} led off node {away}, every member "
+                  "following", settled)
+        return led[0]
 
     def scan(self, nid: int) -> dict:
         """Node `nid`'s scan of the table → {(host, ts): v}."""
@@ -178,18 +210,14 @@ class RaftCluster:
                     DEFAULT_TENANT, DB, TABLE, TimeRanges.all(),
                     ColumnDomains.all())}
 
-    def plans_follow(self, rs, away: int, keep=()) -> bool:
+    def plans_follow(self, rs, away: int) -> bool:
         """Whether one member leads the group, off node `away`, and every
-        node plans its read of the group there (the nodes in `keep` at
-        meta's static leader instead)."""
-        lead = self.leader_node(rs)
-        if lead in (None, away):
+        node plans its read of the group there."""
+        lead = self.led_off(rs, away)
+        if lead is None:
             return False
         live = (self.member(lead, rs).node_id, lead)
-        static = (rs.leader_vnode_id, rs.leader_node_id)
-        return all(self.routes(nid)[rs.id] == (static if nid in keep
-                                                else live)
-                   for nid in self.coords)
+        return all(self.routes(nid)[rs.id] == live for nid in self.coords)
 
     def close(self):
         for nid, c in self.coords.items():
@@ -347,26 +375,150 @@ def test_every_member_node_follows_the_live_leader(cluster3, path):
            lambda: c.plans_follow(g, away=l_node))
 
 
-def test_node_with_no_member_reads_the_static_leader(cluster4, path):
+def _outsider(c):
+    """A group of the cluster and a node that holds no member of it."""
+    return next((rs, nid) for rs in c.groups() for nid in c.coords
+                if all(v.node_id != nid for v in rs.vnodes))
+
+
+def _leader_reads() -> dict:
+    return health.leader_read_counters()
+
+
+def test_node_with_no_member_reads_what_the_live_leader_acked(cluster4,
+                                                               path):
     """A node that holds no member of a group has no view of its raft
-    leader: it reads the group from meta's static leader, while the
-    nodes that hold members follow the live leader. Once the static
-    leader has applied the log, its read holds every acked row."""
+    leader: its scan asks meta's static leader S for a leader read, and
+    S, which no longer leads, redirects it to the live leader L. With
+    S's raft traffic held back and rows acked by L, one read through the
+    outsider, with no wait, returns every acknowledged row while S's own
+    replica lacks them; the redirect is booked. The outsider's next plan
+    starts at L, the leader it learned."""
     c = cluster4
-    g, outsider = next((rs, nid) for rs in c.groups() for nid in c.coords
-                       if all(v.node_id != nid for v in rs.vnodes))
+    g, outsider = _outsider(c)
     s_node = g.leader_node_id
     c.write(s_node)
     for rs in c.groups():
         c.wait_caught_up(rs)
     l_node = c.lead_off(g, s_node)
-    c.wait("the member nodes plan at the live leader, the outsider at "
-           "the static one",
-           lambda: c.plans_follow(g, away=s_node, keep={outsider}))
-    c.write(l_node)
+    l_vid = c.member(l_node, g).node_id
+    assert c.routes(outsider)[g.id] == (g.leader_vnode_id, s_node)
+    redirects = _leader_reads().get("redirect", 0)
+
+    _hold_raft_to(c.addr(s_node))
+    try:
+        late = c.write(l_node)
+        lead, static = c.member(l_node, g), c.member(s_node, g)
+        lag = lead.last_applied - static.last_applied
+        got = c.scan(outsider)
+        held = c.replica_rows(l_node, g, s_node)
+    finally:
+        faults.reset()
+    assert lag > 0, "the static leader applied every entry: nothing lagged"
+    assert late.keys().isdisjoint(held), "S was not held back"
+    _assert_rows(got, c.acked)
+    assert _leader_reads().get("redirect", 0) > redirects
+    assert c.routes(outsider)[g.id] == (l_vid, l_node)
+
+
+@pytest.mark.parametrize("leader", ["elected", "never"])
+def test_a_leader_read_waits_out_an_election(cluster4, leader):
+    """The outsider's read starts at the member that led last, which has
+    stepped down while every member's raft traffic is held back: it
+    answers not-leader with no hint. The read backs off and asks again;
+    once the hold lifts and a leader is elected, it is redirected there
+    and answers every acked row. While no leader appears, the read
+    fails within its deadline instead of reading a replica."""
+    c = cluster4
+    g, outsider = _outsider(c)
+    c.write(g.leader_node_id)
     for rs in c.groups():
         c.wait_caught_up(rs)
-    _assert_rows(c.scan(outsider), c.acked)
+    c.scan(outsider)                  # learns the group's leader
+    # no member hears another, so none is elected: the leader steps down
+    faults.configure(f"seed={SEED};" + ";".join(
+        f"rpc.send:fail:if={c.addr(v.node_id)} raft_msg" for v in g.vnodes))
+    c.wait("a leader", lambda: c.leader_node(g) is not None)
+    c.member(c.leader_node(g), g).stepdown()
+    waits = _leader_reads().get("no_leader", 0)
+    if leader == "elected":
+        threading.Timer(0.5, faults.reset).start()
+        t0 = time.monotonic()
+        got = c.scan(outsider)
+        assert time.monotonic() - t0 < WAIT_S
+        _assert_rows(got, c.acked)
+    else:
+        dl = deadline_mod.Deadline(1.5, qid=f"ryw-{next(_QIDS)}")
+        t0 = time.monotonic()
+        with pytest.raises((CoordinatorError, DeadlineExceeded)):
+            with deadline_mod.scope(dl):
+                c.coords[outsider].scan_table(DEFAULT_TENANT, DB, TABLE,
+                                              field_names=["v"])
+        assert time.monotonic() - t0 < 1.5 + 1.0
+        faults.reset()
+    assert _leader_reads().get("no_leader", 0) > waits
+
+
+def test_an_outsiders_leader_read_is_not_hedged(cluster4, monkeypatch):
+    """With every hedge due at once, the outsider's leader read still
+    waits for the leader: a hedge would read a follower, the held-back
+    static leader among them. The suppression is booked and no hedge
+    fires."""
+    monkeypatch.setenv("CNOSDB_HEDGE", "1")
+    monkeypatch.setattr(health, "HEDGE_DELAY_FLOOR_MS", 0.0)
+    monkeypatch.setattr(health.SCORER, "hedge_delay",
+                        lambda *a, **k: 0.0)
+    c = cluster4
+    g, outsider = _outsider(c)
+    s_node = g.leader_node_id
+    c.write(s_node)
+    for rs in c.groups():
+        c.wait_caught_up(rs)
+    l_node = c.lead_off(g, s_node)
+    before = health.counters_snapshot()[0]
+    _hold_raft_to(c.addr(s_node))
+    try:
+        c.write(l_node)
+        got = c.scan(outsider)
+    finally:
+        faults.reset()
+    _assert_rows(got, c.acked)
+    after = health.counters_snapshot()[0]
+    key = ("suppressed", "leader_read")
+    assert after.get(key, 0) > before.get(key, 0)
+    assert after.get(("fired", ""), 0) == before.get(("fired", ""), 0)
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_a_scan_without_the_flag_is_served_where_it_lands(cluster3, flag):
+    """The scan RPC at a member that does not lead: without the
+    `leader_read` flag it scans that replica, as before; with it, it
+    answers not-leader with the leader's vnode as its hint. At the
+    leader both scan."""
+    c = cluster3
+    (g,) = c.groups()
+    c.write(g.leader_node_id)
+    c.wait_caught_up(g)
+    lead = c.leader_node(g)
+    l_vid = c.member(lead, g).node_id
+    (f_node,) = [n for n in c.coords if n != lead][:1]
+    f_vid = c.member(f_node, g).node_id
+
+    def scan(nid, vid):
+        p = {"owner": OWNER, "vnode_id": vid, "table": TABLE,
+             "trs": TimeRanges.all().to_wire(),
+             "doms": ColumnDomains.all().to_wire(), "field_names": ["v"]}
+        if flag:
+            p["leader_read"] = True
+        return c.services[nid]._scan_vnode(p)
+
+    at_follower = scan(f_node, f_vid)
+    if flag:
+        assert at_follower == {"ok": False, "not_leader": True,
+                               "hint": l_vid}
+    else:
+        assert at_follower["ipc"] is not None
+    assert scan(lead, l_vid)["ipc"] is not None
 
 
 class _Hint:
