@@ -2084,8 +2084,10 @@ STATIC_RAFT_DELAY_MS = 2000
 MEMCACHE_LIMIT = 1 << 20
 LP_BATCH = 10_000
 # the write errors of an entry raft did not commit (the leader changed
-# under it): the write was not acked, and a client sends it again
+# under it, or the group elected past the propose timeout): the write
+# was not acked, and a client sends it again
 RETRIED_WRITE_ERRORS = ("entry superseded after leadership change",
+                        "propose timeout",
                         "no reachable leader for replica set")
 CLUSTER_SQL = {
     "double_groupby_1":
@@ -2381,6 +2383,28 @@ class Clients:
 def table_keys(node, db: str = "dcw", table: str = "cw") -> set:
     return {r[0] for r in csv_rows(node.sql(f"SELECT DISTINCT k FROM {table}",
                                             db=db))}
+
+
+def replica_keys(node, owner: str, vnode_id: int, db_table: str = "cw"
+                 ) -> set:
+    """The keys the node's replica `vnode_id` of `owner` holds: the scan
+    RPC without the `leader_read` flag, served where it lands with no
+    leader check (not a client read: the history would take it for a
+    read that went back in time)."""
+    from cnosdb_tpu_torch.models.predicate import ColumnDomains, TimeRanges
+    from cnosdb_tpu_torch.parallel.ipc import decode_scan_batch
+    from cnosdb_tpu_torch.parallel.net import rpc_call
+
+    r = rpc_call(f"127.0.0.1:{node.rpc_port}", "scan_vnode", {
+        "owner": owner, "vnode_id": vnode_id, "table": db_table,
+        "trs": TimeRanges.all().to_wire(),
+        "doms": ColumnDomains.all().to_wire(), "field_names": ["v"]},
+        timeout=30.0)
+    if r.get("ipc") is None:
+        return set()
+    b = decode_scan_batch(r["ipc"])
+    return {b.series_keys[o].tag_value("k")
+            for o in np.unique(b.sid_ordinal[:b.n_rows])}
 
 
 def wait_keys(node, want: set, timeout: float = 60.0) -> set:
@@ -2784,8 +2808,9 @@ def write_keys(node, db: str, table: str, keys: list) -> bool:
 
 
 def leader_read_counts(node) -> dict:
-    """The node's leader-read counters (/debug/health): its reads of the
-    replica sets it holds no member of, through their raft leaders."""
+    """The node's leader-read counters (/debug/health): its reads of
+    replicated sets through their raft leaders, the redirects it
+    followed and its waits for a leader."""
     return json.loads(node.http("GET", "/debug/health"))["counters"].get(
         "leader_read", {})
 
@@ -2912,6 +2937,144 @@ def outsider_reads(cluster) -> dict:
         f"forced lag at the read: applied index {s_applied} on the static "
         f"leader against {l_applied} on the live leader; the static "
         f"leader's own replica lacked {res['static_lacks']} acked keys")
+    return res
+
+
+def read_index_counts(node) -> dict:
+    """The node's read-index counters (/debug/health): the reads it served
+    as a replicated group's leader, each confirmed or refused."""
+    return json.loads(node.http("GET", "/debug/health"))["counters"].get(
+        "read_index", {})
+
+
+def deposed_leader_reads(cluster, clients) -> dict:
+    """Step 7's read through a deposed leader: dcw (SHARD 1 REPLICA 3) is
+    led on node S, and S's raft is cut both ways (S's raft messages fail,
+    and so do the other two nodes' raft messages to S; every scan still
+    answers). The other two elect L and keys are acked through L, while
+    S, which hears no higher term, still leads in its own view. One
+    read through S's HTTP, with no wait: S's read index refuses (its
+    round reaches no peer), and the read goes to the other members as a
+    leader read. It must hold every acked key and no key that was never
+    written, or fail within its deadline (the step prints which), and S
+    must book at least one read-index not_leader. The acked keys S's own
+    replica lacks are logged. Then the cut heals, S catches up, and no
+    vnode is BROKEN in any node's view of meta. → the step's JSON."""
+    from cnosdb_tpu_torch.parallel.net import rpc_call
+
+    owner = "cnosdb.dcw"
+    owners = ("cnosdb.tsbs", "cnosdb.dcw", "cnosdb.dcx")
+    (rs,) = replica_sets(cluster.nodes[0], (owner,))
+    gid = str(rs["id"])
+    by_id = {n.node_id: n for n in cluster.nodes}
+    wait_leaders(cluster, {owner: 1})
+    s_id, s_vid = live_leaders(cluster, owner)[gid]
+    s_node = by_id[s_id]
+    others = [n for n in cluster.nodes if n is not s_node]
+    cut = {s_node: f"seed={NEMESIS_SEED};rpc.send:fail:if=raft_msg"}
+    cut.update({n: f"seed={NEMESIS_SEED};rpc.send:fail:if=127.0.0.1:"
+                   f"{s_node.rpc_port} raft_msg" for n in others})
+
+    def faults(specs: dict) -> None:
+        for n, spec in specs.items():
+            rpc_call(f"127.0.0.1:{n.rpc_port}", "_faults", {"spec": spec},
+                     timeout=5.0)
+
+    def s_member() -> dict:
+        (m,) = [m for k, m in json.loads(s_node.http(
+            "GET", "/debug/health"))["raft_members"].items()
+            if k.startswith(f"{owner}/{gid}#")]
+        return m
+
+    t0 = time.perf_counter()
+    faults(cut)
+    try:
+        deadline = time.monotonic() + 60.0
+        while True:
+            at = live_leaders(cluster, owner).get(gid)
+            if at is not None and at[0] != s_node.node_id:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the two nodes cut off from node "
+                                     f"{s_node.node_id} elected no leader "
+                                     f"of {owner}")
+            time.sleep(0.1)
+        elected_s = time.perf_counter() - t0
+        l_node = by_id[at[0]]
+        before = set(clients.acked)
+        clients.write(l_node, 10)
+        new = clients.acked - before
+        if not new:
+            raise AssertionError(f"no key acked through node "
+                                 f"{l_node.node_id}")
+        s_raft = s_member()
+        ri0, lr0 = read_index_counts(s_node), leader_read_counts(s_node)
+        stream = f"r{s_node.node_id}"
+        e = clients.rec.invoke(stream, "read", durable=False, mono=True)
+        t = time.perf_counter()
+        try:
+            keys, failed = table_keys(s_node), None
+            clients.rec.ok(stream, e, keys=sorted(keys))
+        except AssertionError as ex:
+            keys, failed = None, str(ex)[-300:]
+            clients.rec.fail(stream, e, failed[:200])
+        read_ms = (time.perf_counter() - t) * 1e3
+        ri1, lr1 = read_index_counts(s_node), leader_read_counts(s_node)
+        # S's own replica (S's own reads never scan it: it refuses)
+        s_keys = replica_keys(s_node, owner, s_vid)
+    finally:
+        faults({n: f"seed={NEMESIS_SEED}" for n in cluster.nodes})
+    refused = {k: ri1.get(k, 0) - ri0.get(k, 0)
+               for k in ("confirmed", "not_leader", "apply_waits",
+                         "rounds", "wait_us")}
+    redirected = {k: lr1.get(k, 0) - lr0.get(k, 0)
+                  for k in ("read", "redirect", "no_leader")}
+    where = (f"node {s_node.node_id} (deposed leader of {owner}, raft "
+             f"{s_raft['role']} in term {s_raft['term']}; node "
+             f"{l_node.node_id} leads)")
+    if s_raft["role"] != "leader":
+        raise AssertionError(f"{where}: it no longer led in its own view "
+                             "at the read, so no deposed leader was read")
+    if refused["not_leader"] < 1:
+        raise AssertionError(f"{where}: its read index refused no read: "
+                             f"{refused}")
+    written = {f"w{i}" for i in range(clients.n)}
+    if keys is not None:
+        missing = clients.acked - keys
+        if missing or not keys <= written:
+            raise AssertionError(
+                f"{where}: its read misses {len(missing)} acked keys "
+                f"{sorted(missing)[:5]} and holds {sorted(keys - written)} "
+                f"never written (read index {refused}, leader reads "
+                f"{redirected})")
+    lacks = len(new - s_keys)
+    if not lacks:
+        raise AssertionError(f"{where}: its own replica holds every key "
+                             "acked through the new leader: the cut forced "
+                             "no lag")
+    caught_s = wait_caught_up(s_node, owners, others)
+    check_no_marks(cluster, owners, f"node {s_node.node_id}'s raft cut "
+                   "healed")
+    res = {"deposed_node": s_node.node_id, "leader_node": l_node.node_id,
+           "elected_s": elected_s, "acked_keys": len(clients.acked),
+           "new_keys": len(new), "read_ms": read_ms,
+           "read": "answered" if failed is None else "failed",
+           "read_error": failed, "read_index": refused,
+           "leader_reads": redirected, "deposed_lacks": lacks,
+           "caught_up_s": caught_s}
+    log(f"# deposed leader read: {owner}'s leader node {s_node.node_id} "
+        f"cut off from raft both ways (its scans up), node "
+        f"{l_node.node_id} elected after {elected_s:.2f}s, {len(new)} keys "
+        f"acked through it; node {s_node.node_id} still led in its own "
+        f"view (term {s_raft['term']}); its one read with no wait "
+        + (f"({read_ms:.1f} ms) holds all {len(clients.acked)} acked keys "
+           "and none never written"
+           if failed is None else
+           f"failed within its deadline after {read_ms:.1f} ms: {failed}")
+        + f"; its read index {refused}, its leader reads {redirected}; "
+        f"its own replica lacked {lacks} acked keys; healed, caught up "
+        f"in {caught_s:.2f}s, no vnode BROKEN")
+    print(json.dumps({"deposed_leader_reads": res}), flush=True)
     return res
 
 
@@ -3194,13 +3357,20 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
         out["read_your_writes"] = read_your_writes(cluster, clients)
         # read-your-writes through a node that holds no member
         out["outsider_reads"] = outsider_reads(cluster)
+        # read-your-writes through a leader cut off from raft
+        out["deposed_leader_reads"] = deposed_leader_reads(cluster, clients)
 
         # partition: a symmetric partition around one node. Every node
         # answers, the cut-off one from its own replicas, and the other
         # two take the clients' writes; after the heal no replica stays
         # shunned (no mark in any node's view of meta), so the node
         # holding tsbs's live raft leaders reads all-local, its lane
-        # engaging on the first pass
+        # engaging on the first pass. A group the cut-off node leads in
+        # its own view is the exception: its read index reaches no peer,
+        # no other member answers, and its replica is never read
+        # unconfirmed, so that query fails within its leader-read
+        # deadline with the leader-read error and a read-index refusal
+        # on the node (booked `victim_refused`)
         ev = nemesis.generate_plan(NEMESIS_SEED, n_nodes=3, steps=1,
                                    kinds=("partition",))[0]
         victim = cluster.nodes[ev.node]
@@ -3215,11 +3385,27 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
                          timeout=5.0)
             # the survivors, then the victim on its own replicas (its
             # scan RPCs fail: a failed reach to each peer's replicas)
-            part_ms = {}
+            part_ms, refused = {}, {}
             for n in survivors + [victim]:
                 for name, q in CLUSTER_SQL.items():
                     t1 = time.perf_counter()
-                    check_cluster_answer(name, n.sql(q), data)
+                    ri0 = read_index_counts(n).get("not_leader", 0)
+                    try:
+                        text = n.sql(q)
+                    except AssertionError as ex:
+                        led = [k for k, m in json.loads(n.http(
+                            "GET", "/debug/health"))["raft_members"].items()
+                            if k.startswith("cnosdb.tsbs/")
+                            and m["role"] == "leader"]
+                        if n is not victim or not led or "no raft leader " \
+                                "of the replica set" not in str(ex) or \
+                                read_index_counts(n).get(
+                                    "not_leader", 0) <= ri0:
+                            raise
+                        refused[name] = {"leads": led,
+                                         "error": str(ex)[-200:]}
+                    else:
+                        check_cluster_answer(name, text, data)
                     part_ms.setdefault(name, []).append(
                         round((time.perf_counter() - t1) * 1e3, 1))
             reach = {k: b["consecutive_failures"] for k, b in json.loads(
@@ -3251,6 +3437,7 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
                               f"{victim.node_id} healed")
         out["partition"] = {"node": victim.node_id, "cut_s": cut_s,
                             "query_ms": part_ms, "victim_failed": reach,
+                            "victim_refused": refused,
                             "leaders_node": leader.node_id,
                             "stepdowns": moved}
         log(f"# partition (nemesis seed={NEMESIS_SEED}, "
@@ -3258,8 +3445,10 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
             f"its peers both ways for {cut_s:.2f}s; nodes "
             f"{[n.node_id for n in survivors]}, then node {victim.node_id} "
             f"on its own replicas, answered every query, each against the "
-            f"oracle (ms by node {part_ms}; the victim's RPCs failed in a "
-            f"row, by peer: {reach}); 5 keys written "
+            f"oracle, but the ones refused at a group the victim led in "
+            f"its own view ({refused or 'none'}) (ms by node {part_ms}; "
+            f"the victim's RPCs failed in a row, by peer: {reach}); 5 keys "
+            f"written "
             f"through node {survivors[0].node_id} "
             f"({clients.failed - failed0} writes failed by a leadership "
             f"change); after the heal no vnode BROKEN in any node's view "
@@ -3362,6 +3551,13 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
             f"{len(clients.acked)} acked keys, {clients.failed} writes "
             f"failed by a leadership change; no lost acked write, no "
             "resurrection, read-your-writes, monotonic reads on every node")
+        out["read_index"] = {n.node_id: read_index_counts(n)
+                             for n in cluster.nodes}
+        out["leader_read"] = {n.node_id: leader_read_counts(n)
+                              for n in cluster.nodes}
+        log(f"# reads served as a replicated group's leader, by node "
+            f"(read index): {out['read_index']}; leader reads by "
+            f"node: {out['leader_read']}")
 
         # the CLI against HTTP, then --dump-ddl replayed
         cli = [sys.executable, "-m", "cnosdb_tpu_torch.client.cli",

@@ -15,8 +15,10 @@ reads end, the run reads the vnodes marked BROKEN in every node's view of
 meta from the `cluster_schema.vnodes` system table, which every tree
 serves. One JSON line a run: its tree, whether the phase passed, the
 failure's first line, the phase's seconds, the restarted node's crash to
-first answer, the partition's and the read-your-writes step's records
-where the tree has them, and the marks read at each point (also each
+first answer, the records of the partition, read-your-writes, outsider
+and deposed-leader steps, the baseline's query times and the read-index
+and leader-read counters where the tree has them, and the marks read at
+each point (also each
 time a node's local-scan fault is cleared, labelled "restart_read");
 each run's log lands beside it. Placement "cpu" runs the nodes on the
 host (with the device decode lane forced, as on the card).
@@ -87,8 +89,11 @@ def run_one(tree: str, rows: int, placement: str | None) -> dict:
         out = chip_smoke.cluster_phase(SEED, rows, placement=placement)
         rec["ok"] = True
         rec["crash_to_first_answer_s"] = out.get("crash_to_first_answer_s")
-        rec["partition"] = out.get("partition")
-        rec["read_your_writes"] = out.get("read_your_writes")
+        # the steps' records and the read timings where the tree has them
+        for key in ("partition", "read_your_writes", "outsider_reads",
+                    "deposed_leader_reads", "query_ms", "read_index",
+                    "leader_read"):
+            rec[key] = out.get(key)
     except Exception as e:   # the record says why; the caller goes on
         lines = str(e).strip().splitlines()
         rec["error"] = f"{type(e).__name__}: {lines[0] if lines else ''}"

@@ -55,6 +55,10 @@ CB_BURN_FRACTION = float(os.environ.get("CNOSDB_CB_BURN_FRACTION", "0.5"))
 # and the backoff of an election: the scan RPC's own timeout, capped by
 # the request's deadline
 LEADER_READ_TIMEOUT_S = 10.0
+# A leader's budget for confirming a read through its read index (one
+# raft round, and the apply of what it committed), capped by the
+# request's deadline
+READ_INDEX_TIMEOUT_S = 5.0
 
 
 @dataclass
@@ -78,8 +82,9 @@ class PlacedSplit:
     alternates: list = field(default_factory=list)
     # replicas meta marks BROKEN: data-suspect until the repair clears it
     broken_ids: set = field(default_factory=set)
-    # a replicated set read by a node that holds no member of it: the
-    # scan asks for the group's raft leader and follows its redirects
+    # a replicated set's read: the scan asks for the group's raft leader,
+    # follows its redirects, and is served once the leader confirms it
+    # through its read index
     leader_read: bool = False
 
 
@@ -103,6 +108,7 @@ class Coordinator:
         self.node_id = node_id if node_id is not None else meta.node_id
         self._replica_mgr = None  # built on first multi-replica write
         self._replica_mgr_lock = lockwatch.Lock("coord.replica_mgr")
+        self._closed = False      # a closed node builds no raft members
         # (owner, replica set id) → the vnode last seen leading it, for
         # the leader reads of the sets this node holds no member of
         self._leaders_seen: dict = {}
@@ -619,6 +625,11 @@ class Coordinator:
         # by /debug/health; one that won leadership left the registered
         # member a follower with no leader and its group stuck
         with self._replica_mgr_lock:
+            if self._closed:
+                # a raft message or a scan that reaches a closed node
+                # (a kept-alive connection) would start raft members that
+                # tick for good
+                raise CoordinatorError(f"node {self.node_id} is closed")
             if self._replica_mgr is None:
                 from .replica import ReplicaGroupManager
 
@@ -631,6 +642,8 @@ class Coordinator:
     def close(self):
         """Stop raft tickers BEFORE closing the engine — heartbeats append
         to the WAL, which must outlive them."""
+        with self._replica_mgr_lock:
+            self._closed = True
         if self._replica_mgr is not None:
             self._replica_mgr.stop()
             self._replica_mgr = None
@@ -685,18 +698,18 @@ class Coordinator:
         for bucket in self.meta.buckets_for(tenant, db, lo, hi):
             for rs in bucket.shard_group:
                 vnode_id = rs.leader_vnode_id
-                # follow the live raft leader for read-your-writes: meta's
-                # static leader may be a follower that has not applied the
-                # tail of the log since an election
+                # every read of a replicated set is a leader read: it
+                # starts at the live raft leader (meta's static leader may
+                # be a follower that has not applied the tail of the log
+                # since an election); a node with no view of the leader
+                # (it holds no member of the set, or its member is between
+                # leaders) starts at the leader it last saw, else meta's
+                # static one, and follows the redirects
+                replicated = len(rs.vnodes) > 1
                 live = self._live_leader_vnode(owner, rs)
-                # a node with no member of a replicated set has no view of
-                # its raft leader: its scan asks the leader it last saw
-                # (else meta's static one) and follows the redirects
-                outsider = live is None and len(rs.vnodes) > 1 \
-                    and all(v.node_id != self.node_id for v in rs.vnodes)
                 if live is not None:
                     vnode_id = live
-                elif outsider:
+                elif replicated:
                     vnode_id = self._leader_seen(owner, rs) or vnode_id
                 candidate = vnode_id
                 # prefer a RUNNING replica over a broken-marked leader
@@ -731,7 +744,7 @@ class Coordinator:
                                     alternates=running + broken)
                 split.broken_ids = {a.id for a in rs.vnodes
                                     if a.status == VnodeStatus.BROKEN}
-                split.leader_read = outsider and vnode_id == candidate
+                split.leader_read = replicated and vnode_id == candidate
                 splits.append(split)
         return splits
 
@@ -739,9 +752,9 @@ class Coordinator:
         """The vnode that leads the replicated set in raft, as this node
         sees it: a local member that leads, else the leader a local
         member follows. None where the set has one replica, where the
-        node holds no member of it (no view of its leader: readers keep
-        meta's static leader), or where the view names no vnode of the
-        set or a COPYING one (no data yet)."""
+        node has no view of its leader (it holds no member of the set, or
+        its member is between leaders), or where the view names no vnode
+        of the set or a COPYING one (no data yet)."""
         from ..models.meta_data import VnodeStatus
 
         mgr = self._replica_mgr
@@ -767,19 +780,56 @@ class Coordinator:
             return None
         return vid
 
-    def _leader_scan(self, split: PlacedSplit, payload: dict,
-                     hedge: bool = False) -> dict:
-        """A leader read of `split` (PlacedSplit.leader_read): the scan
-        RPC with the `leader_read` flag, at the planned vnode first. A
+    def leader_elsewhere(self, owner: str, vnode_id: int) -> dict | None:
+        """The member check of a leader read of `vnode_id` on this node,
+        for the scan RPC's handler and this node's own leader reads
+        (_leader_scan) alike → None where the vnode's raft member
+        confirms through its read index that it leads and has applied
+        what the group committed: the read is served here. Else the
+        not-leader reply, its hint the leader the member follows or a
+        newer one it heard of (None while the group elects, or where the
+        member leads but cannot confirm it). None also where the set has
+        one replica or the vnode no member here: the read is served as
+        one without the flag."""
+        from .raft import NotLeader
+
+        hit = self.meta.find_vnode(vnode_id)
+        if hit is None or len(hit[2].vnodes) <= 1:
+            return None
+        member = self.replica_manager().get_or_build(
+            owner, hit[2]).get(vnode_id)
+        if member is None:
+            return None
+        try:
+            member.read_index(deadline_mod.cap_current(READ_INDEX_TIMEOUT_S))
+        except NotLeader as e:
+            hint = e.leader_id
+            return {"ok": False, "not_leader": True,
+                    "hint": hint if hint != vnode_id else None}
+        return None
+
+    def _leader_scan(self, split: PlacedSplit, payload: dict, scan_here,
+                     hedge: bool = False,
+                     refused: set | None = None) -> ScanBatch | None:
+        """A leader read of `split` (PlacedSplit.leader_read), at the
+        planned vnode first. Each member asked serves it only once its
+        read index confirms that it leads (leader_elsewhere): a member on
+        this node is checked here and read by `scan_here(vnode_id)`, a
+        remote one through the scan RPC with the `leader_read` flag. A
         member that does not lead answers not-leader with the leader it
-        follows, and the scan goes there; with no leader known (an
-        election on, or a hint already tried) it backs off and asks
-        again, until the request's deadline or the scan RPC's timeout
-        runs out (CoordinatorError). → the reply of the member that led.
-        RpcUnavailable / RpcError from the member asked last propagate:
-        the caller fails over to the alternates, as for a live leader
-        that does not answer."""
+        follows, and the read goes there; with no leader named (an
+        election on, a leader that could not confirm it, or a hint
+        already tried) it asks the members not asked yet, then backs off
+        and asks again, until the request's deadline or the scan RPC's
+        timeout runs out (CoordinatorError). → the batch of the member
+        that led. Each member that answered not-leader joins `refused`,
+        which the caller's failover never reads. RpcUnavailable /
+        RpcError from the planned vnode or a named leader propagate: the
+        caller fails over to the other alternates, as for a live leader
+        that does not answer; a member asked only because none was named
+        counts as naming none."""
         from ..models.meta_data import VnodeStatus
+        from .net import RpcError
 
         deadline = time.monotonic() + deadline_mod.cap_current(
             LEADER_READ_TIMEOUT_S)
@@ -788,17 +838,33 @@ class Coordinator:
         rs = hit[2] if hit is not None else None
         vnode_id, node_id = split.vnode_id, split.node_id
         asked = set()
+        refused = refused if refused is not None else set()
+        polled = False        # asking members that named no leader
         health.count_leader_read("read")
         while True:
             deadline_mod.check_current()
             asked.add(vnode_id)
-            r = self._rpc(node_id, "scan_vnode",
-                          {**payload, "vnode_id": vnode_id,
-                           "leader_read": True}, hedge=hedge)
-            if not r.get("not_leader"):
+            here = node_id == self.node_id or not self.distributed
+            silent = False
+            if here:
+                r = self.leader_elsewhere(split.owner, vnode_id)
+            else:
+                try:
+                    r = self._rpc(node_id, "scan_vnode",
+                                  {**payload, "vnode_id": vnode_id,
+                                   "leader_read": True}, hedge=hedge)
+                except RpcError:
+                    if not polled:
+                        raise
+                    # a member polled for the leader that does not answer
+                    # names none: the read goes on asking the others
+                    r, silent = {"not_leader": True, "hint": None}, True
+            if r is None or not r.get("not_leader"):
                 if rs is not None:
                     self._leaders_seen[(split.owner, rs.id)] = vnode_id
-                return r
+                return scan_here(vnode_id) if here else self._decode_reply(r)
+            if not silent:
+                refused.add(vnode_id)
             hint = r.get("hint")
             v = rs.vnode(hint) if rs is not None and hint is not None \
                 else None
@@ -806,19 +872,82 @@ class Coordinator:
                 v = None
             if v is not None and v.id not in asked:
                 health.count_leader_read("redirect")
+                polled = False
             else:
-                # no leader named, or stale hints that lead back: wait
-                # for the group to settle, then ask again
+                # no leader named (an election on, or a leader that could
+                # not confirm it leads), or stale hints that lead back:
+                # ask a member not asked yet, else wait for the group to
+                # settle and ask again
                 health.count_leader_read("no_leader")
-                if not bo.sleep(deadline):
-                    raise CoordinatorError(
-                        f"no raft leader of the replica set of vnode "
-                        f"{split.vnode_id} of {split.owner} answered a "
-                        f"leader read (last asked vnode {vnode_id}, hint "
-                        f"{hint})")
-                asked.clear()
+                v = next((x for x in rs.vnodes if x.id not in asked
+                          and x.status == VnodeStatus.RUNNING), None) \
+                    if rs is not None else None
+                polled = True
+                if v is None:
+                    if not bo.sleep(deadline):
+                        raise CoordinatorError(
+                            f"no raft leader of the replica set of vnode "
+                            f"{split.vnode_id} of {split.owner} answered a "
+                            f"leader read (last asked vnode {vnode_id}, "
+                            f"hint {hint})")
+                    asked.clear()
             if v is not None:
                 vnode_id, node_id = v.id, v.node_id
+
+    def _decode_reply(self, r: dict) -> ScanBatch | None:
+        """A scan RPC's reply → its batch, charged to the request (the
+        reply buffer and its decoded twin are its to pay for:
+        MemoryExceeded kills only it)."""
+        from .ipc import decode_scan_batch
+
+        raw = r.get("ipc")
+        if raw is None:
+            return None
+        memory.charge_query(len(raw), "rpc_result")
+        return decode_scan_batch(raw)
+
+    def _local_leader_read(self, split: PlacedSplit, field_names,
+                           fingerprint, scan_here) -> ScanBatch | None:
+        """A leader read planned at a member on this node: _leader_scan,
+        which reads a member here through `scan_here(split)` once it
+        confirms. Where a leader it was sent to does not answer, the read
+        fails over to the set's other replicas, as a remote leader read
+        does, and never to a member that refused it."""
+        from .net import RpcError
+
+        def at(vnode_id):
+            if vnode_id == split.vnode_id:
+                return scan_here(split)
+            return scan_here(PlacedSplit(
+                split.owner, vnode_id, split.table, split.time_ranges,
+                split.tag_domains, node_id=self.node_id,
+                tier=self._split_tier(split.owner, vnode_id, self.node_id),
+                alternates=[a for a in split.alternates if a[0] != vnode_id],
+                broken_ids=set(split.broken_ids)))
+
+        refused: set = set()
+        try:
+            return self._leader_scan(split, self._scan_payload(
+                split, split.vnode_id, field_names, fingerprint), at,
+                refused=refused)
+        except RpcError:
+            alts = [a for a in split.alternates if a[0] not in refused]
+            if not alts:
+                raise
+            return self._scan_remote(PlacedSplit(
+                split.owner, alts[0][0], split.table, split.time_ranges,
+                split.tag_domains, node_id=alts[0][1], alternates=alts[1:],
+                broken_ids=set(split.broken_ids)), field_names,
+                fingerprint=fingerprint)
+
+    def _scan_payload(self, split: PlacedSplit, vnode_id: int, field_names,
+                      fingerprint) -> dict:
+        """The scan RPC's request for `split` at `vnode_id`."""
+        return {"owner": split.owner, "vnode_id": vnode_id,
+                "table": split.table,
+                "trs": split.time_ranges.to_wire(),
+                "doms": split.tag_domains.to_wire(),
+                "field_names": field_names, "fp": fingerprint}
 
     def _split_tier(self, owner: str, vnode_id: int, node_id: int) -> str:
         """COLD iff the (locally-placed) vnode has object-store-tiered
@@ -921,6 +1050,12 @@ class Coordinator:
             if self.distributed and split.node_id != self.node_id:
                 return self._scan_remote(split, field_names,
                                          fingerprint=fingerprint)
+            if split.leader_read:
+                return self._local_leader_read(split, field_names,
+                                               fingerprint, local)
+            return local(split)
+
+        def local(split):
             try:
                 return self._scan_local(split, field_names, page_constraints,
                                         filter_key, n_threads,
@@ -1299,35 +1434,35 @@ class Coordinator:
     def _scan_remote_solo(self, split: PlacedSplit, targets, field_names,
                           fingerprint: str | None = None) -> ScanBatch | None:
         """Legacy fixed-order failover loop (CNOSDB_HEDGE=0 A/B path)."""
-        from .ipc import decode_scan_batch
         from .net import RpcError, RpcUnavailable
 
         last_unreach = None
         last_reject = None
+        refused: set = set()     # members that refused the leader read
+
+        def scan_here(vnode_id):
+            return self._scan_local(PlacedSplit(
+                split.owner, vnode_id, split.table, split.time_ranges,
+                split.tag_domains), field_names)
+
         for i, (vnode_id, node_id) in enumerate(targets):
+            if vnode_id in refused:
+                continue
             if node_id == self.node_id:
                 if self.engine.vnode(split.owner, vnode_id) is None:
                     # placement says local but the data is absent (dropped /
                     # never installed): other replicas may still have it
                     continue
-                alt = PlacedSplit(split.owner, vnode_id, split.table,
-                                  split.time_ranges, split.tag_domains)
-                return self._scan_local(alt, field_names)
-            payload = {
-                "owner": split.owner, "vnode_id": vnode_id,
-                "table": split.table,
-                "trs": split.time_ranges.to_wire(),
-                "doms": split.tag_domains.to_wire(),
-                "field_names": field_names,
-                "fp": fingerprint,
-            }
+                return scan_here(vnode_id)
+            payload = self._scan_payload(split, vnode_id, field_names,
+                                         fingerprint)
             try:
                 if i == 0 and split.leader_read:
                     # the failover below reads the alternates as a member
                     # node's read of a silent live leader does
-                    r = self._leader_scan(split, payload)
-                else:
-                    r = self._rpc(node_id, "scan_vnode", payload)
+                    return self._leader_scan(split, payload, scan_here,
+                                             refused=refused)
+                r = self._rpc(node_id, "scan_vnode", payload)
             except RpcUnavailable as e:
                 # this node could not reach the replica: _rpc's breaker
                 # and the health scorer book it for this node alone. Meta
@@ -1340,13 +1475,7 @@ class Coordinator:
                 continue
             # an answer does not clear a BROKEN mark: a replica whose
             # file was quarantined answers with fewer rows
-            raw = r.get("ipc")
-            if raw is None:
-                return None
-            # per-query accounting: the reply buffer + its decoded twin
-            # are this request's to pay for (MemoryExceeded kills only it)
-            memory.charge_query(len(raw), "rpc_result")
-            return decode_scan_batch(raw)
+            return self._decode_reply(r)
         if last_reject is not None:
             # at least one replica ANSWERED and rejected the scan — an
             # app-level error, not an availability problem; its message is
@@ -1389,15 +1518,16 @@ class Coordinator:
         loser's hedge qid so the query's scans of OTHER vnodes are
         untouched. A failed attempt triggers immediate failover to the
         next target — failovers are not hedges and skip the limiter.
-        A split planned at its group's live raft leader is never hedged:
-        every other replica is a follower that may not have applied the
-        tail of the log, and its answer, first in, would miss rows the
-        leader acknowledged; such a read waits for the leader, and fails
-        over only when the leader does not answer (booked as suppressed,
-        reason leader_read).
+        A leader read (every split of a replicated set the planner sent to
+        its raft leader, PlacedSplit.leader_read) is never hedged: every
+        other replica is a follower that may not have applied the tail
+        of the log, and its answer, first in, would miss rows the leader
+        acknowledged; such a read waits for the leader, which serves it
+        once its read index confirms it, and fails over only when no
+        member answers at all (booked as suppressed, reason
+        leader_read).
         Every exit of this lane books into cnosdb_hedge_total
         (hedge-accounting lint rule)."""
-        from .ipc import decode_scan_batch
         from .net import RpcError, RpcThrottled, RpcUnavailable
 
         parent = deadline_mod.current()
@@ -1407,11 +1537,15 @@ class Coordinator:
         hedges_fired = 0
         next_target = 0
         armed = True          # one suppression verdict per scan
-        hit = self.meta.find_vnode(split.vnode_id)
-        leader_read = split.leader_read or hit is not None and \
-            self._live_leader_vnode(split.owner, hit[2]) == split.vnode_id
+        leader_read = split.leader_read
         last_unreach = last_reject = None
         throttled_idxs: list[int] = []   # slow-start-refused targets
+        refused: set = set()     # members that refused the leader read
+
+        def scan_here(vnode_id):
+            return self._scan_local(PlacedSplit(
+                split.owner, vnode_id, split.table, split.time_ranges,
+                split.tag_domains), field_names)
 
         def launch(is_hedge: bool, idx: int | None = None,
                    bypass_ramp: bool = False) -> None:
@@ -1431,6 +1565,10 @@ class Coordinator:
             def attempt():
                 try:
                     with deadline_mod.scope(child):
+                        if vnode_id in refused:
+                            # a member that refused the leader read
+                            resq.put((idx, "skip", None))
+                            return
                         if node_id == self.node_id:
                             if self.engine.vnode(split.owner,
                                                  vnode_id) is None:
@@ -1438,27 +1576,17 @@ class Coordinator:
                                 # absent (dropped / never installed)
                                 resq.put((idx, "skip", None))
                                 return
-                            alt = PlacedSplit(split.owner, vnode_id,
-                                              split.table,
-                                              split.time_ranges,
-                                              split.tag_domains)
-                            resq.put((idx, "local",
-                                      self._scan_local(alt, field_names)))
+                            resq.put((idx, "batch", scan_here(vnode_id)))
                             return
-                        payload = {
-                            "owner": split.owner, "vnode_id": vnode_id,
-                            "table": split.table,
-                            "trs": split.time_ranges.to_wire(),
-                            "doms": split.tag_domains.to_wire(),
-                            "field_names": field_names,
-                            "fp": fingerprint,
-                        }
+                        payload = self._scan_payload(split, vnode_id,
+                                                     field_names, fingerprint)
                         if idx == 0 and split.leader_read:
-                            r = self._leader_scan(split, payload,
-                                                  hedge=bypass_ramp)
-                        else:
-                            r = self._rpc(node_id, "scan_vnode", payload,
-                                          hedge=bypass_ramp)
+                            resq.put((idx, "batch", self._leader_scan(
+                                split, payload, scan_here, hedge=bypass_ramp,
+                                refused=refused)))
+                            return
+                        r = self._rpc(node_id, "scan_vnode", payload,
+                                      hedge=bypass_ramp)
                         resq.put((idx, "remote", r))
                 except RpcUnavailable as e:
                     # a peer this node cannot reach (booked by _rpc's
@@ -1580,7 +1708,7 @@ class Coordinator:
             a = inflight.pop(idx, None)
             if a is None:     # late result of an already-settled attempt
                 continue
-            if kind in ("local", "remote"):
+            if kind in ("batch", "remote"):
                 won_by_hedge = a["hedge"]
                 abandon("hedge loser")
                 if won_by_hedge:
@@ -1589,13 +1717,8 @@ class Coordinator:
                 lost = hedges_fired - (1 if won_by_hedge else 0)
                 if lost > 0:
                     health.count_hedge("lost", n=lost)
-                if kind == "local":
-                    return value
-                raw = value.get("ipc")
-                if raw is None:
-                    return None
-                memory.charge_query(len(raw), "rpc_result")
-                return decode_scan_batch(raw)
+                # a loser's reply is never decoded nor charged
+                return value if kind == "batch" else self._decode_reply(value)
             if kind == "error" and not a["hedge"]:
                 # primary-lineage failure of the typed kind the legacy
                 # loop propagates immediately (deadline gone, cancel,

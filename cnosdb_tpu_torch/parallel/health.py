@@ -485,12 +485,11 @@ def count_breaker(node, state: str, n: int = 1) -> None:
 
 
 def count_leader_read(outcome: str, n: int = 1) -> None:
-    """Leader-read accounting: a node that holds no member of a
-    replicated group reads it through the group's raft leader
-    (Coordinator._leader_scan). `read` (one such scan), `redirect` (a
-    member that does not lead named the leader, and the scan went
-    there), `no_leader` (no leader was named: the scan backed off and
-    asked again)."""
+    """Leader-read accounting: a read of a replicated group goes to the
+    group's raft leader (Coordinator._leader_scan). `read` (one such
+    scan), `redirect` (a member that does not lead named the leader, and
+    the scan went there), `no_leader` (no leader was named: the scan
+    asked another member, or backed off and asked again)."""
     with _ctr_lock:
         k = ("leader_read", outcome, "")
         _counters[k] = _counters.get(k, 0) + n
@@ -501,6 +500,27 @@ def leader_read_counters() -> dict:
     with _ctr_lock:
         return {k[1]: v for k, v in _counters.items()
                 if len(k) == 3 and k[0] == "leader_read"}
+
+
+def count_read_index(outcome: str, n: int = 1) -> None:
+    """Read-index accounting (raft.RaftNode.read_index, every read of a
+    replicated set served as its leader): `confirmed` (a read the leader
+    confirmed and applied), `not_leader` (a read refused: the member does
+    not lead, or could not confirm it), `apply_waits` (a confirmed read
+    that waited for its term's entry to commit or for the index to
+    apply), `rounds` (append broadcasts a read asked for; the reads that
+    share one count it once), `wait_us` (microseconds spent in the read
+    index, confirmed or refused)."""
+    with _ctr_lock:
+        k = ("read_index", outcome, "")
+        _counters[k] = _counters.get(k, 0) + n
+
+
+def read_index_counters() -> dict:
+    """→ {outcome: n} of count_read_index."""
+    with _ctr_lock:
+        return {k[1]: v for k, v in _counters.items()
+                if len(k) == 3 and k[0] == "read_index"}
 
 
 def counters_snapshot() -> tuple[dict, dict]:

@@ -108,7 +108,8 @@ class DataNodeService:
 
     def _scan_vnode(self, p):
         if p.get("leader_read"):
-            elsewhere = self._leader_elsewhere(p["owner"], p["vnode_id"])
+            elsewhere = self.coord.leader_elsewhere(p["owner"],
+                                                    p["vnode_id"])
             if elsewhere is not None:
                 return elsewhere
         if p.get("fp"):
@@ -125,23 +126,6 @@ class DataNodeService:
         if b is None:
             return {"ipc": None}
         return {"ipc": encode_scan_batch(b)}
-
-    def _leader_elsewhere(self, owner: str, vnode_id: int):
-        """A leader read of a vnode of a replicated set whose member here
-        does not lead → the not-leader reply, its hint the leader that
-        member follows (None while the group elects); None where the
-        member leads, the set has one replica or the vnode no member
-        here: the scan goes ahead, as without the flag."""
-        hit = self.coord.meta.find_vnode(vnode_id)
-        if hit is None or len(hit[2].vnodes) <= 1:
-            return None
-        member = self.coord.replica_manager().get_or_build(
-            owner, hit[2]).get(vnode_id)
-        if member is None or member.is_leader():
-            return None
-        hint = member.leader_id
-        return {"ok": False, "not_leader": True,
-                "hint": hint if hint != vnode_id else None}
 
     def _vnode_token(self, p):
         """Serving-plane result-cache validation: the LOCAL vnode's

@@ -15,9 +15,13 @@ per vnode as the reference (wal_store.rs RaftEntryStorage).
 Simplifications vs openraft, stated plainly:
 - PreVote IS implemented (`_prevote()` below) — a candidate first polls a
   majority without bumping terms, so partitioned nodes cannot depose a
-  healthy leader on rejoin; leader-lease reads are not implemented (reads
-  go through the leader's state machine which is safe for our apply
-  model);
+  healthy leader on rejoin;
+- reads are linearizable through `RaftNode.read_index` (the raft
+  thesis's read index, openraft's ensure_linearizable): the leader
+  confirms that it still leads with an append round a majority answers,
+  and serves once it has applied the commit index it read. There are no
+  leases and no clock assumptions: a leader cut off from its peers keeps
+  its role until it hears a higher term, and fails the round;
 - membership changes are single-step (add/remove one voter at a time).
 """
 from __future__ import annotations
@@ -440,6 +444,19 @@ class RaftNode:
         self.elections = {"prevote_rounds": 0, "prevotes_won": 0,
                           "last_prevote": None, "tick_errors": 0,
                           "refused": {}}
+        # the read index: the term whose own entry last committed here (a
+        # new leader learns the commit index only then). Append broadcasts
+        # are numbered: the newest one asked for, the newest one a send
+        # has carried, and per peer the newest one a returned send carried
+        # (`_done`) and a reply at its term answered (`_heard`). A peer
+        # has one send in flight at a time (`_sending`: its sender runs)
+        self._commit_term = 0
+        self._bcast_seq = 0
+        self._bcast_taken = 0
+        self._done: dict[int, int] = {}
+        self._heard: dict[int, int] = {}
+        self._sending: set[int] = set()
+        self._sent_cv = threading.Condition(self.lock)
         if hasattr(transport, "register"):
             transport.register(self)
         self._ticker = None
@@ -719,6 +736,100 @@ class RaftNode:
                 "entry superseded after leadership change", index=idx)
         return idx
 
+    def read_index(self, timeout: float = 5.0) -> int:
+        """The read index of the raft thesis (§6.4; openraft's
+        ensure_linearizable) → the log index a linearizable read may serve
+        at, applied here before it returns. The leader waits for an entry
+        of its own term to commit (a new leader learns the commit index
+        only then), reads its commit index, and confirms that it still
+        leads: a majority, this member included, answers at its term an
+        append sent after the read arrived (`_confirm`). Raises NotLeader
+        when this member does not lead, or cannot confirm it or apply the
+        index within `timeout`: its hint is the leader it follows, or a
+        newer leader it heard of, else None."""
+        from . import health
+
+        t0 = time.monotonic()
+        deadline = t0 + timeout
+        waited = False
+        try:
+            with self.lock:
+                term = self._leading()
+            while True:
+                with self._apply_cv:
+                    self._leading(term)
+                    if self._commit_term == term:
+                        read_idx = self.commit_index
+                        break
+                # this term's blank entry has not committed: carry it to
+                # the peers again each heartbeat while waiting
+                waited = True
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise NotLeader(None)
+                self._broadcast_append(wait=0)
+                with self._apply_cv:
+                    if self._commit_term != term:
+                        self._apply_cv.wait(min(remaining,
+                                                self.heartbeat_interval))
+            self._confirm(term, deadline)
+            with self._apply_cv:
+                while self.last_applied < read_idx:
+                    waited = True
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise NotLeader(None)
+                    self._apply_cv.wait(remaining)
+        except NotLeader:
+            health.count_read_index("not_leader")
+            raise
+        finally:
+            health.count_read_index(
+                "wait_us", int((time.monotonic() - t0) * 1e6))
+        health.count_read_index("confirmed")
+        if waited:
+            health.count_read_index("apply_waits")
+        return read_idx
+
+    def _leading(self, term: int | None = None) -> int:
+        """→ this member's term; NotLeader unless it leads (at `term`,
+        where given), its hint the leader this member follows (None where
+        it knows none). Caller holds self.lock."""
+        if self.is_leader() and term in (None, self.term):
+            return self.term
+        hint = self.leader_id
+        raise NotLeader(hint if hint != self.node_id else None)
+
+    def _confirm(self, term: int, deadline: float) -> None:
+        """Raise NotLeader unless a majority, this member included,
+        answers at `term` an append sent after this call, by `deadline`.
+        Any reply at the term counts, whether or not the append took. The
+        reads that arrive before any send has carried the newest
+        broadcast share it; else a read asks for the next one. A peer
+        whose send is in flight (slow, hung, or taking a snapshot) gets
+        it once that send returns: reads add no sends beside it. Lost
+        once every peer answered the broadcast or failed without a
+        majority at the term (a higher term steps this member down)."""
+        from . import health
+
+        with self.lock:
+            if self._bcast_taken >= self._bcast_seq:
+                health.count_read_index("rounds")
+                self._broadcast_append(wait=0)
+            want = self._bcast_seq
+        with self._sent_cv:
+            while True:
+                self._leading(term)
+                peers = list(self.peers)
+                acks = 1 + sum(self._heard.get(p, 0) >= want for p in peers)
+                if acks * 2 > len(peers) + 1:
+                    return
+                remaining = deadline - time.monotonic()
+                if remaining <= 0 or all(self._done.get(p, 0) >= want
+                                         for p in peers):
+                    raise NotLeader(None)
+                self._sent_cv.wait(remaining)
+
     def _append_local(self, entry_type: int, data: bytes) -> int:
         idx = self.log.last_index() + 1
         self.log.append(LogEntry(self.term, idx, entry_type, data))
@@ -823,34 +934,76 @@ class RaftNode:
         self._notify_state()
 
     # ------------------------------------------------------------ replication
-    def _broadcast_append(self):
-        """Send to all peers CONCURRENTLY: one slow/unreachable peer (packet
-        loss blocks an HTTP send for the full timeout) must not delay
-        heartbeats or commit progress toward the healthy majority."""
+    def _broadcast_append(self, wait: float = 0.5) -> int:
+        """Ask every peer for an append (a heartbeat, the entries it
+        lacks, or a snapshot) → the broadcast's number. Each peer has ONE
+        send in flight: a peer whose sender is busy gets the newest
+        broadcast once its send returns, so a slow, unreachable or
+        snapshot-bound peer holds one thread and one send however often
+        broadcasts are asked for, and never delays the healthy majority.
+        Waits up to `wait` s for every peer's send of this broadcast to
+        return, so the fast majority's replies land before commit."""
+        with self.lock:
+            self._bcast_seq += 1
+            seq = self._bcast_seq
+            peers = list(self.peers)
+            idle = [p for p in peers if p not in self._sending]
+            self._sending.update(idle)
         self._last_heartbeat = time.monotonic()
-        if len(self.peers) <= 1:
-            for p in self.peers:
-                self._safe_send_append(p)
-        else:
-            threads = [threading.Thread(target=self._safe_send_append,
-                                        args=(p,), daemon=True)
-                       for p in self.peers]
-            for t in threads:
-                t.start()
-            # brief join so the fast majority's replies land before commit
-            for t in threads:
-                t.join(timeout=0.5)
+        for p in idle:
+            try:
+                threading.Thread(target=self._sender, args=(p,),
+                                 daemon=True).start()
+            except RuntimeError:
+                # no thread to send with: the peer misses this broadcast,
+                # as a lost message, and the next one starts its sender
+                stages.count_error("swallow.raft.send_append")
+                with self.lock:
+                    self._sending.discard(p)
+        if wait:
+            until = time.monotonic() + wait
+            with self._sent_cv:
+                while self.role == Role.LEADER and any(
+                        self._done.get(p, 0) < seq for p in peers):
+                    remaining = until - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    self._sent_cv.wait(remaining)
         self._advance_commit()
+        return seq
 
-    def _safe_send_append(self, peer: int):
-        """A failed send is a dropped message — never let it unwind a
-        broadcast thread (e.g. stores closing during shutdown)."""
-        try:
-            self._send_append(peer)
-        except Exception:
-            stages.count_error("swallow.raft.send_append")
+    def _sender(self, peer: int):
+        """Send `peer` the newest broadcast until it has none newer than
+        the one its last send carried, then stop (the next broadcast
+        starts it again). A failed send is a dropped message: it never
+        unwinds the sender (e.g. stores closing during shutdown)."""
+        while True:
+            with self.lock:
+                seq, term = self._bcast_seq, self.term
+                if self.role != Role.LEADER or peer not in self.peers:
+                    self._done[peer] = max(self._done.get(peer, 0), seq)
+                    self._sending.discard(peer)
+                    self._sent_cv.notify_all()
+                    return
+                self._bcast_taken = max(self._bcast_taken, seq)
+            reply = None
+            try:
+                reply = self._send_append(peer)
+            except Exception:
+                stages.count_error("swallow.raft.send_append")
+            with self._sent_cv:
+                self._done[peer] = max(self._done.get(peer, 0), seq)
+                if reply is not None and reply.get("term") == term \
+                        and self.term == term:
+                    self._heard[peer] = max(self._heard.get(peer, 0), seq)
+                self._sent_cv.notify_all()
+                if self._bcast_seq == seq:
+                    self._sending.discard(peer)
+                    return
 
-    def _send_append(self, peer: int):
+    def _send_append(self, peer: int) -> dict | None:
+        """One append (or snapshot) to `peer` → its reply, None when none
+        came or this member does not lead."""
         need_snapshot = False
         with self.lock:
             if self.role != Role.LEADER:
@@ -883,11 +1036,10 @@ class RaftNode:
         if need_snapshot:
             # snapshot serialization scans the state machine: NEVER under
             # the raft lock, or heartbeats/votes stall and elections fire
-            self._send_snapshot(peer)
-            return
+            return self._send_snapshot(peer)
         reply = self.transport.send(self.group_id, peer, msg)
         if reply is None:
-            return
+            return None
         advanced = False
         with self.lock:
             if reply.get("term", 0) > self.term:
@@ -900,7 +1052,7 @@ class RaftNode:
             else:
                 self.next_index[peer] = max(1, min(
                     ni - 1, reply.get("conflict_index", ni - 1)))
-                return
+                return reply
         if reply.get("term", 0) > self.term:
             self._step_down(reply["term"])
         elif advanced:
@@ -908,6 +1060,7 @@ class RaftNode:
             # from concurrent broadcast threads must not wait for the next
             # heartbeat tick
             self._advance_commit()
+        return reply
 
     def _send_snapshot(self, peer: int):
         # Capture (snapshot, applied index) consistently WITHOUT holding
@@ -941,6 +1094,7 @@ class RaftNode:
             with self.lock:
                 self.next_index[peer] = applied_idx + 1
                 self.match_index[peer] = applied_idx
+        return reply
 
     def _advance_commit(self):
         with self.lock:
@@ -954,6 +1108,7 @@ class RaftNode:
             if majority_idx > self.commit_index and \
                     self.log.term_at(majority_idx) == self.term:
                 self.commit_index = majority_idx
+                self._commit_term = self.term
             self._apply_committed()
 
     def _apply_committed(self):

@@ -952,11 +952,15 @@ class HttpServer:
                           for (o, r), n in sorted(hedge.items())},
                 "breaker": {f"{node}:{state}": n
                             for (node, state), n in sorted(breaker.items())},
-                # reads of the sets this node holds no member of, through
-                # their raft leaders: redirects a member gave, and waits
-                # for a leader while a group elected
+                # reads of replicated sets, through their raft leaders:
+                # redirects a member gave, and waits for a leader while
+                # a group elected
                 "leader_read": dict(sorted(
                     health.leader_read_counters().items())),
+                # the reads this node served as a group's leader: each
+                # confirmed through the read index, or refused
+                "read_index": dict(sorted(
+                    health.read_index_counters().items())),
             },
         })
 

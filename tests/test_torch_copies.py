@@ -278,6 +278,19 @@ SUBS = {
         ('"cnosdb_tpu/', '"cnosdb_tpu_torch/'),
         ("~cnosdb_tpu.analysis.Rule", "~cnosdb_tpu_torch.analysis.Rule")],
     "analysis/interproc.py": _INTERPROC_SUBS,
+    # reads are linearizable through the read index; there are no leases
+    "parallel/raft.py": [
+        ("""  healthy leader on rejoin; leader-lease reads are not implemented (reads
+  go through the leader's state machine which is safe for our apply
+  model);
+""", """  healthy leader on rejoin;
+- reads are linearizable through `RaftNode.read_index` (the raft
+  thesis's read index, openraft's ensure_linearizable): the leader
+  confirms that it still leads with an append round a majority answers,
+  and serves once it has applied the commit index it read. There are no
+  leases and no clock assumptions: a leader cut off from its peers keeps
+  its role until it hears a higher term, and fails the round;
+""")],
     # the replica manager's lazy build is guarded (see REWRITTEN); a
     # split's BROKEN replicas are data-suspect, no scan clears them
     "parallel/coordinator.py": [
@@ -286,16 +299,20 @@ SUBS = {
          "        self._replica_mgr = None  # built on first multi-replica "
          "write\n        self._replica_mgr_lock = lockwatch.Lock("
          "\"coord.replica_mgr\")\n"
+         "        self._closed = False      # a closed node builds no raft "
+         "members\n"
          "        # (owner, replica set id) → the vnode last seen leading it, "
          "for\n        # the leader reads of the sets this node holds no "
          "member of\n        self._leaders_seen: dict = {}\n"),
-        # a node with no member of a replicated set reads it through the
-        # set's raft leader (Coordinator._leader_scan)
+        # every read of a replicated set goes to the set's raft leader
+        # (Coordinator._leader_scan), which confirms it through its read
+        # index (RaftNode.read_index)
         ("    broken_ids: set = field(default_factory=set)\n",
          "    broken_ids: set = field(default_factory=set)\n"
-         "    # a replicated set read by a node that holds no member of it: "
-         "the\n    # scan asks for the group's raft leader and follows its "
-         "redirects\n    leader_read: bool = False\n"),
+         "    # a replicated set's read: the scan asks for the group's raft "
+         "leader,\n    # follows its redirects, and is served once the "
+         "leader confirms it\n    # through its read index\n"
+         "    leader_read: bool = False\n"),
         ('CB_BURN_FRACTION = float(os.environ.get("CNOSDB_CB_BURN_FRACTION",'
          ' "0.5"))\n',
          'CB_BURN_FRACTION = float(os.environ.get("CNOSDB_CB_BURN_FRACTION",'
@@ -303,7 +320,10 @@ SUBS = {
          "# A leader read's budget for reaching the raft leader through "
          "redirects\n# and the backoff of an election: the scan RPC's own "
          "timeout, capped by\n# the request's deadline\n"
-         "LEADER_READ_TIMEOUT_S = 10.0\n"),
+         "LEADER_READ_TIMEOUT_S = 10.0\n"
+         "# A leader's budget for confirming a read through its read index "
+         "(one\n# raft round, and the apply of what it committed), capped "
+         "by the\n# request's deadline\nREAD_INDEX_TIMEOUT_S = 5.0\n"),
         ("    # replicas currently marked BROKEN (self-heal on a successful "
          "scan)\n",
          "    # replicas meta marks BROKEN: data-suspect until the repair "
@@ -342,7 +362,11 @@ REWRITTEN = {
                          "device_segment_reduce"},
     # no relay guard before the server starts
     "server/main.py": {"main"},
-    # the hooks raise; the replica manager is built once under a lock:
+    # the hooks raise; a closed node builds no replica manager (a raft
+    # message on a kept-alive connection built one after close, whose
+    # members ticked for good: dozens of them in a test process, enough
+    # load to move raft's elections in the tests that followed); the
+    # replica manager is built once under a lock:
     # concurrent raft messages at a node's boot built two, and the unseen
     # second one's members took leadership of their groups while the
     # registered members sat at commit 0 (a group leaderless for 180 s
@@ -365,7 +389,18 @@ REWRITTEN = {
     # the leader the node last saw, the scan lanes follow the redirects
     # and never hedge such a read): it read meta's static leader, which
     # after an election may lack the tail of the log, so on a cluster
-    # with fewer replicas than nodes an acked write could go unread
+    # with fewer replicas than nodes an acked write could go unread;
+    # every read of a replicated set is a leader read, a member node's
+    # too (one whose member knew no leader, between two, read meta's
+    # static leader, hedged to a follower), the hedge lane takes the flag
+    # from the plan, and a split planned at a member on this node is
+    # scanned only once the member's read index confirms it leads
+    # (scan_table): a new leader served before it applied what its
+    # predecessor acked, and a deposed one, cut off from raft, served
+    # what it had; a leader read, local or remote, never fails over to a
+    # member that refused it (the refused replica, last in the
+    # alternates, answered with a deposed leader's rows), and the scan
+    # lanes build their request and decode a reply through one helper
     "parallel/coordinator.py": {"Coordinator._upload_hook",
                                 "Coordinator._decode_hook",
                                 "Coordinator.replica_manager",
@@ -373,9 +408,12 @@ REWRITTEN = {
                                 "Coordinator._rank_targets",
                                 "Coordinator._scan_remote_solo",
                                 "Coordinator._scan_remote_hedged",
-                                "Coordinator._mark_vnode_broken"},
-    # a leader read at a member that does not lead is answered with a
-    # redirect to the leader it follows, not scanned
+                                "Coordinator._mark_vnode_broken",
+                                "Coordinator.scan_table",
+                                "Coordinator.close"},
+    # a leader read at a member that does not lead, or cannot confirm
+    # through its read index that it does, is answered with a redirect
+    # to the leader it follows, not scanned
     "parallel/node_service.py": {"DataNodeService._scan_vnode"},
     # the wire query id names its tracker: ids from 1 in every process
     # collided in peers' cancel tombstones (a restarted node's queries
@@ -410,11 +448,21 @@ REWRITTEN = {
     # candidates waiting out a silent peer do not split votes in lockstep
     # a member forgets the leader when its term moves on, and a candidate
     # or a deposed leader names none: its stale leader_id (itself, once
-    # it led) was the hint a NotLeader and a leader read's redirect took
+    # it led) was the hint a NotLeader and a leader read's redirect took;
+    # an append returns its reply and a commit records its term, for the
+    # read index (a leader served reads before it had applied what its
+    # predecessor acked, or after it was deposed); an append broadcast is
+    # numbered, and each peer has one send in flight, carrying the newest
+    # broadcast (a broadcast started a thread per peer, so a slow or
+    # snapshot-bound peer collected one send, a whole-vnode snapshot
+    # among them, per broadcast)
     "parallel/raft.py": {"RaftNode.__init__", "RaftNode._tick_loop",
                          "RaftNode._start_election", "RaftNode._prevote",
                          "RaftNode._on_request_prevote",
-                         "RaftNode._step_down"},
+                         "RaftNode._step_down", "RaftNode._send_append",
+                         "RaftNode._send_snapshot",
+                         "RaftNode._advance_commit",
+                         "RaftNode._broadcast_append"},
     # a scan reads the memory caches up to the applied watermark it took
     # under the vnode lock (raft's apply during catch-up tore a series'
     # timestamps from its fields: HTTP 500, "could not broadcast input
@@ -452,6 +500,8 @@ DROPPED = {
     # torch.compile or torch.jit
     "analysis/interproc.py": {"_contains_jit", "_static_argnames",
                               "Project._add_jit_alias", "RecompileHazard"},
+    # a broadcast's sends run in each peer's sender (RaftNode._sender)
+    "parallel/raft.py": {"RaftNode._safe_send_append"},
 }
 # per file: functions and classes the port adds
 ADDED = {
@@ -470,16 +520,26 @@ ADDED = {
     # scan takes, and the part of a memory-cache series at or below it
     "storage/vnode.py": {"VnodeStorage.replay_raft_tail"},
     "parallel/raft.py": {"WalLogStore.first_index",
-                         "RaftNode.election_stats"},
+                         "RaftNode.election_stats",
+                         # the read index, its leadership check and
+                         # round, and a peer's one sender
+                         "RaftNode.read_index", "RaftNode._leading",
+                         "RaftNode._confirm", "RaftNode._sender"},
     "parallel/replica.py": {"_resume_index", "open_local_members"},
-    # the live raft leader as the node sees it, for the planner and the
-    # hedge lane
+    # the live raft leader as the node sees it, for the planner; the
+    # leader reads, remote and local, one member check for both (the
+    # scan RPC's handler asks it too), and the scan lanes' request and
+    # reply helpers
     "parallel/coordinator.py": {"Coordinator._live_leader_vnode",
                                 "Coordinator._leader_seen",
-                                "Coordinator._leader_scan"},
-    # the leader reads: the not-leader answer, and their counters
-    "parallel/node_service.py": {"DataNodeService._leader_elsewhere"},
-    "parallel/health.py": {"count_leader_read", "leader_read_counters"},
+                                "Coordinator.leader_elsewhere",
+                                "Coordinator._leader_scan",
+                                "Coordinator._decode_reply",
+                                "Coordinator._local_leader_read",
+                                "Coordinator._scan_payload"},
+    # the leader reads' counters
+    "parallel/health.py": {"count_leader_read", "leader_read_counters",
+                           "count_read_index", "read_index_counters"},
     # three-valued `!=` and BETWEEN of two constants and of NULLs
     "sql/expr.py": {"_ne", "_none_mask", "_cmp_truths"},
     "storage/scan.py": {"_mem_snapshot"},

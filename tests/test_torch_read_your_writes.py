@@ -489,6 +489,146 @@ def test_an_outsiders_leader_read_is_not_hedged(cluster4, monkeypatch):
     assert after.get(("fired", ""), 0) == before.get(("fired", ""), 0)
 
 
+def _read_index() -> dict:
+    return health.read_index_counters()
+
+
+class _Cut:
+    """A raft member's transport with every send lost."""
+
+    def send(self, group_id, to, msg):
+        return None
+
+
+def test_a_deposed_leaders_node_reads_what_the_new_leader_acked(cluster3,
+                                                                 path):
+    """The leader S's raft is cut both ways (its member's sends are lost,
+    and raft messages to its node fail; its scans still answer). The
+    other two elect L and ack rows; S keeps its role, as no higher term
+    reaches it, and its replica lacks them. One read through S, with no
+    wait, returns every acked row: S's read index refuses (booked as
+    not_leader), and the read goes to the other members as a leader
+    read."""
+    c = cluster3
+    (g,) = c.groups()
+    c.write(g.leader_node_id)
+    c.wait_caught_up(g)
+    s_node = c.leader_node(g)
+    s = c.member(s_node, g)
+    inner = s.transport
+    refused = _read_index().get("not_leader", 0)
+    s.transport = _Cut()
+    _hold_raft_to(c.addr(s_node))
+    try:
+        c.wait("the other two elect a leader", lambda: any(
+            m.is_leader() for nid, m in c.members(g).items()
+            if nid != s_node))
+        (l_node,) = [nid for nid, m in c.members(g).items()
+                     if nid != s_node and m.is_leader()]
+        late = c.write(l_node)
+        deposed = s.is_leader()
+        got = c.scan(s_node)
+        held = c.replica_rows(l_node, g, s_node)
+    finally:
+        faults.reset()
+        s.transport = inner
+    assert deposed, "S lost its role: no deposed leader was read"
+    assert late.keys().isdisjoint(held), "S was not cut off"
+    _assert_rows(got, c.acked)
+    assert _read_index().get("not_leader", 0) > refused
+
+
+def test_a_cut_off_leaders_node_never_reads_the_replica_that_refused(
+        cluster3, monkeypatch):
+    """As above, but S is cut off from its peers for scans too once the
+    other two acked rows through their new leader. A read through S then
+    has no member to confirm it: S's read index refuses, and the other
+    members do not answer. The read fails with the leader-read error
+    within its deadline; it never answers from S's own replica, which
+    lacks the acked rows."""
+    from cnosdb_tpu_torch.parallel import coordinator
+
+    monkeypatch.setattr(coordinator, "LEADER_READ_TIMEOUT_S", 1.0)
+    c = cluster3
+    (g,) = c.groups()
+    c.write(g.leader_node_id)
+    c.wait_caught_up(g)
+    s_node = c.leader_node(g)
+    s = c.member(s_node, g)
+    inner = s.transport
+    refused = _read_index().get("not_leader", 0)
+    s.transport = _Cut()
+    _hold_raft_to(c.addr(s_node))
+    try:
+        c.wait("the other two elect a leader", lambda: any(
+            m.is_leader() for nid, m in c.members(g).items()
+            if nid != s_node))
+        (l_node,) = [nid for nid, m in c.members(g).items()
+                     if nid != s_node and m.is_leader()]
+        c.write(l_node)
+        faults.configure(f"seed={SEED};" + ";".join(
+            f"rpc.send:fail:if={c.addr(nid)}" for nid in c.coords))
+        deposed = s.is_leader()
+        t0 = time.monotonic()
+        with pytest.raises(CoordinatorError, match="no raft leader"):
+            c.scan(s_node)
+        took = time.monotonic() - t0
+    finally:
+        faults.reset()
+        s.transport = inner
+    assert deposed, "S lost its role: no deposed leader was read"
+    assert took < 10.0
+    assert _read_index().get("not_leader", 0) > refused
+
+
+def test_a_member_node_between_leaders_makes_a_leader_read(cluster3,
+                                                           monkeypatch):
+    """Leadership moves off meta's static leader S to L, S's raft is held
+    back and rows are acked, so S's replica lags. Then no member hears
+    another and L steps down: L's member knows no leader, so L's node
+    plans its read at S. That read is a leader read: with every hedge
+    due at once it fires none (a hedge would read a lagging replica),
+    backs off while the group elects, and returns every acked row once
+    the hold lifts."""
+    monkeypatch.setenv("CNOSDB_HEDGE", "1")
+    monkeypatch.setattr(health, "HEDGE_DELAY_FLOOR_MS", 0.0)
+    monkeypatch.setattr(health.SCORER, "hedge_delay",
+                        lambda *a, **k: 0.0)
+    c = cluster3
+    (g,) = c.groups()
+    s_node = g.leader_node_id
+    c.write(s_node)
+    c.wait_caught_up(g)
+    l_node = c.lead_off(g, s_node)
+    _hold_raft_to(c.addr(s_node))
+    try:
+        late = c.write(l_node)
+        faults.configure(f"seed={SEED};" + ";".join(
+            f"rpc.send:fail:if={c.addr(v.node_id)} raft_msg"
+            for v in g.vnodes))
+        held = c.replica_rows(l_node, g, s_node)
+        c.member(l_node, g).stepdown()
+        unknown = c.member(l_node, g).leader_id is None
+        (split,) = c.coords[l_node].table_vnodes(
+            DEFAULT_TENANT, DB, TABLE, TimeRanges.all(), ColumnDomains.all())
+        before = health.counters_snapshot()[0]
+        waits = _leader_reads().get("no_leader", 0)
+        threading.Timer(0.5, faults.reset).start()
+        got = c.scan(l_node)
+    finally:
+        faults.reset()
+    assert unknown, "L's member still named a leader"
+    assert late.keys().isdisjoint(held), "S did not lag"
+    assert (split.vnode_id, split.node_id) == (g.leader_vnode_id, s_node)
+    assert split.leader_read
+    _assert_rows(got, c.acked)
+    after = health.counters_snapshot()[0]
+    assert after.get(("fired", ""), 0) == before.get(("fired", ""), 0)
+    key = ("suppressed", "leader_read")
+    assert after.get(key, 0) > before.get(key, 0)
+    assert _leader_reads().get("no_leader", 0) > waits
+
+
 @pytest.mark.parametrize("flag", [False, True])
 def test_a_scan_without_the_flag_is_served_where_it_lands(cluster3, flag):
     """The scan RPC at a member that does not lead: without the

@@ -35,6 +35,7 @@ from cnosdb_tpu_torch.parallel import health
 from cnosdb_tpu_torch.parallel.coordinator import Coordinator, PlacedSplit
 from cnosdb_tpu_torch.parallel.meta import DEFAULT_TENANT, MetaStore
 from cnosdb_tpu_torch.parallel.node_service import DataNodeService
+from cnosdb_tpu_torch.parallel.raft import NotLeader
 from cnosdb_tpu_torch.storage.engine import TsKv
 from cnosdb_tpu_torch.utils import deadline as deadline_mod
 
@@ -71,6 +72,11 @@ class Leaders:
             return None
         return self.shared.get((owner, rs.id))
 
+    def get_or_build(self, owner, rs) -> dict:
+        """The node's members of the group, as a read sees them."""
+        return {v.id: _Member(self, owner, rs, v.id) for v in rs.vnodes
+                if v.node_id == self.node_id}
+
     def stepdown_local(self, owner, rs, vnode_id) -> bool:
         if self.current_leader_vnode(owner, rs) != vnode_id:
             return False
@@ -82,6 +88,20 @@ class Leaders:
 
     def stop(self):
         pass
+
+
+class _Member:
+    """A raft member as a read sees it: its read index confirms a read
+    where it leads, and names the leader otherwise."""
+
+    def __init__(self, leaders: Leaders, owner, rs, vnode_id: int):
+        self.lead = leaders.shared.get((owner, rs.id))
+        self.vnode_id = vnode_id
+
+    def read_index(self, timeout: float) -> int:
+        if self.lead != self.vnode_id:
+            raise NotLeader(self.lead)
+        return 0
 
 
 class Cluster:
@@ -107,6 +127,10 @@ class Cluster:
             DEFAULT_TENANT, DB, TABLE, tags=["host"],
             fields=[("v", ValueType.FLOAT)]))
         self.want = self._load(np.random.default_rng(SEED))
+        # raft elects a leader in every group: its static one, here (a
+        # read of a replicated set is served only where it leads)
+        for rs in self.groups():
+            self.leaders[(OWNER, rs.id)] = rs.leader_vnode_id
 
     def _load(self, rng) -> dict:
         """Every host's rows, written into each replica of its group on
