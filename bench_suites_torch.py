@@ -1,13 +1,18 @@
-"""Four data-plane suites of bench_suites.py run through cnosdb_tpu_torch:
+"""The eight suites of bench_suites.py run through cnosdb_tpu_torch:
 TSBS IoT-13, log search over OTLP spans, a dashboard over a materialized
-view, and a mixed hot/cold scan over the tiered object store.
+view, a mixed hot/cold scan over the tiered object store, point queries
+through the serving plane, the gray-failure straggler bed, memory
+governance under overload, and the mesh lane swept over 1, 2, 4 and 8
+devices.
 
 Each keeps the reference's function name, seed, row widths, tags, value
-distributions, SQL text and oracle. What differs:
+distributions, SQL text, thread counts and phase structure. What
+differs:
 
-- sizes are arguments (`n_trucks`/`points`, `n_rows`, `suite_rows`);
-  the defaults reproduce bench_suites.py's own formulas at its default
-  SUITE_ROWS of 1,000,000, so the data is the reference's byte for
+- sizes are arguments (`n_trucks`/`points`, `n_rows`, `suite_rows`;
+  `n_hosts`, `per`, thread and request counts; `iters`, `delay_ms`,
+  `rows`, `factors`, the mesh pool); the defaults reproduce
+  bench_suites.py's own sizes, so the data is the reference's byte for
   byte;
 - the oracles that looped over trucks or masked object arrays per value
   are vectorized (one sort or one bincount over the keys; string
@@ -18,21 +23,32 @@ distributions, SQL text and oracle. What differs:
 - the log-search oracle counts the last write of a point written twice
   at one (service, time), as the table holds it (the reference counts
   both; at 2,500,000 spans such pairs occur);
+- the serving, overload and mesh suites check every answer against a
+  numpy oracle over the written arrays (the reference counted them, or
+  compared them with one answer of the system); the straggler suite
+  also checks the unhedged scan against the healthy one;
+- a suite that cannot run raises: no `{"disabled": True}` when its
+  plane is off, no error turned into a report line;
 - `_run` checks the first (cold) pass as well as the timed ones, and
-  takes the time up to `torch.cuda.synchronize()` where the scan device
-  is a card;
+  every timed window of a query ends with `torch.cuda.synchronize()`
+  where the scan device is a card;
 - stages come from the port's `utils.stages`; nothing is written to a
   file, every runner returns dicts.
 
     python3 -c "import bench_suites_torch"   # imports no jax
 
-chip_smoke.py phase 6b drives all four on the card; the CPU tests are
-tests/test_torch_suites.py.
+chip_smoke.py phases 6b and 6c drive them on the card; the CPU tests
+are tests/test_torch_suites.py and tests/test_torch_suites_serving.py.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 import os
+import shutil
 import statistics
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -58,6 +74,15 @@ def _sync() -> None:
         import torch
 
         torch.cuda.synchronize()
+
+
+def _restore_env(saved: dict) -> None:
+    """Put back each variable of `saved` ({name: value, None = unset})."""
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
 
 
 def launch_counts() -> dict:
@@ -714,10 +739,7 @@ def run_dashboard(executor, coord, tenant, db, session, suite_rows=None, *,
         executor.execute_one("DROP MATERIALIZED VIEW bench_dash", session)
     finally:
         executor.matview_rewrite_enabled = True
-        if prev_auto is None:
-            os.environ.pop("CNOSDB_MATVIEW_AUTO", None)
-        else:
-            os.environ["CNOSDB_MATVIEW_AUTO"] = prev_auto
+        _restore_env({"CNOSDB_MATVIEW_AUTO": prev_auto})
     return out
 
 
@@ -733,9 +755,6 @@ def run_coldscan(executor, coord, tenant, db, session, suite_rows=None, *,
     pruning counters — pages pruned locally, bytes downloaded vs stored,
     block-cache hit ratio. K2 (and X2) launches of each pass are in
     out["launches"]."""
-    import shutil
-    import tempfile
-
     from cnosdb_tpu_torch.models.points import SeriesRows, WriteBatch
     from cnosdb_tpu_torch.models.schema import ValueType
     from cnosdb_tpu_torch.models.series import SeriesKey
@@ -867,10 +886,7 @@ def run_coldscan(executor, coord, tenant, db, session, suite_rows=None, *,
             oracle_c, out["compressed_oracle_ms"], oracle_dl = \
                 cold_once("c_oracle")
         finally:
-            if prev_cd is None:
-                os.environ.pop("CNOSDB_COMPRESSED_DOMAIN", None)
-            else:
-                os.environ["CNOSDB_COMPRESSED_DOMAIN"] = prev_cd
+            _restore_env({"CNOSDB_COMPRESSED_DOMAIN": prev_cd})
         assert lane_c == oracle_c == total["n"], "compressed A/B drift"
         out["compressed_bytes_downloaded"] = lane_dl
         out["compressed_oracle_bytes_downloaded"] = oracle_dl
@@ -895,4 +911,745 @@ def run_coldscan(executor, coord, tenant, db, session, suite_rows=None, *,
             tiering.rehydrate_vnode(v)
         tiering.configure(None)
         shutil.rmtree(bucket, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# shared by the serving, overload and mesh suites
+# ---------------------------------------------------------------------------
+def _threads(bodies) -> float:
+    """Run each callable of `bodies` on a thread of its own, all released
+    together. → seconds from the release to the last join. The first
+    exception of any thread is raised once every thread has joined."""
+    gate = threading.Barrier(len(bodies) + 1)
+    errors: list = []
+
+    def run(body):
+        gate.wait()
+        try:
+            body()
+        except BaseException as e:   # raised below, after the join
+            errors.append(e)
+
+    ths = [threading.Thread(target=run, args=(b,)) for b in bodies]
+    for t in ths:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in ths:
+        t.join()
+    elapsed = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return elapsed
+
+
+def _pct_ms(seconds, q):
+    """The q-th percentile of `seconds` in ms; None when there is none."""
+    if not len(seconds):
+        return None
+    return float(np.percentile(np.asarray(seconds), q)) * 1e3
+
+
+def host_values(rng, n_hosts: int, per: int) -> np.ndarray:
+    """[n_hosts, per] float64 N(50, 10) values, drawn host by host as the
+    reference's suites draw them."""
+    return np.stack([rng.normal(50, 10, per) for _ in range(n_hosts)])
+
+
+def _write_hosts(coord, tenant, db, table, field, names, ts, vals) -> None:
+    """One series per host, tag `host` = names[h], times ts[h] and FLOAT
+    `field` values vals[h], one write each."""
+    from cnosdb_tpu_torch.models.points import SeriesRows, WriteBatch
+    from cnosdb_tpu_torch.models.schema import ValueType
+    from cnosdb_tpu_torch.models.series import SeriesKey
+
+    for h, name in enumerate(names):
+        wb = WriteBatch()
+        wb.add_series(table, SeriesRows(
+            SeriesKey(table, {"host": name}), ts[h],
+            {field: (int(ValueType.FLOAT), vals[h])}))
+        coord.write_points(tenant, db, wb)
+
+
+# ---------------------------------------------------------------------------
+# point queries through the serving plane
+# ---------------------------------------------------------------------------
+def check_points(rs, ts, vals, floor=None) -> None:
+    """A point query's answer holds exactly the written (time, value)
+    rows of its host, those with value > floor where `floor` is given,
+    in time order, the values bit for bit."""
+    keep = np.ones(len(ts), dtype=bool) if floor is None else vals > floor
+    assert list(rs.names) == ["time", "value"], rs.names
+    t = np.asarray(_col(rs, "time")).astype(np.int64)
+    v = np.asarray(_col(rs, "value"), dtype=np.float64)
+    assert len(t) == len(v) == int(keep.sum()), (len(t), int(keep.sum()))
+    assert np.array_equal(t, ts[keep]), "times differ"
+    assert np.array_equal(v.view(np.int64), vals[keep].view(np.int64)), \
+        "values differ"
+
+
+def run_pointqps(executor, coord, tenant, db, session, *, n_hosts=64,
+                 per=64, threads=4, per_thread=5000, fthreads=8, fper=40,
+                 seed=47) -> dict:
+    """High-QPS serving-plane suite: a closed loop of `threads` threads,
+    each re-issuing `per_thread` point queries (one host's rows) against
+    an `n_hosts` x `per` table; warm requests land in the result cache.
+    A second phase sends `fthreads` x `fper` unique-literal variants
+    under forced micro-batching, so the fused path (`_fused_exec`) and
+    its width histogram run too. Every answer is held to the written
+    rows: each host before and after the closed loop, every request of
+    the loop and of the fused phase after its threads joined. Raises
+    when the executor has no serving plane, on any wrong answer or
+    request error, and when no request was fused. Counters are read as
+    deltas (the serving counters are process-global)."""
+    from cnosdb_tpu_torch.server import serving as _serving
+
+    sv = executor.serving
+    if sv is None:
+        raise RuntimeError("run_pointqps needs the executor's serving "
+                           "plane (CNOSDB_SERVING=0 turns it off)")
+    rng = np.random.default_rng(seed)
+    executor.execute_one(
+        "CREATE TABLE IF NOT EXISTS pq (value DOUBLE, TAGS(host))",
+        session)
+    ts = BASE_TS + np.arange(per, dtype=np.int64) * 1_000_000_000
+    vals = host_values(rng, n_hosts, per)
+    _write_hosts(coord, tenant, db, "pq", "value",
+                 [f"host_{h}" for h in range(n_hosts)],
+                 np.broadcast_to(ts, vals.shape), vals)
+    coord.engine.flush_all()
+
+    qs = [f"SELECT time, value FROM pq WHERE host = 'host_{h}'"
+          for h in range(n_hosts)]
+
+    def every_host():
+        for h, q in enumerate(qs):
+            check_points(executor.execute_one(q, session), ts, vals[h])
+
+    every_host()                        # warms the plan + result caches
+
+    orders = [rng.integers(0, n_hosts, per_thread) for _ in range(threads)]
+    lat: list[list[float]] = [[] for _ in range(threads)]
+    got: list[list] = [[] for _ in range(threads)]
+
+    def worker(i):
+        def body():
+            for j in orders[i]:
+                t0 = time.perf_counter()
+                rs = executor.execute_one(qs[j], session)
+                _sync()
+                lat[i].append(time.perf_counter() - t0)
+                got[i].append(rs)
+        return body
+
+    c0 = _serving.counters_snapshot()
+    elapsed = _threads([worker(i) for i in range(threads)])
+    c1 = _serving.counters_snapshot()
+    for i in range(threads):
+        for j, rs in zip(orders[i], got[i]):
+            check_points(rs, ts, vals[j])
+    every_host()
+
+    def delta(layer, outcome, a=c0, b=c1):
+        return b.get((layer, outcome), 0) - a.get((layer, outcome), 0)
+
+    hits, misses = delta("result_cache", "hit"), delta("result_cache",
+                                                       "miss")
+    all_lat = np.concatenate([np.asarray(x) for x in lat])
+    total = int(len(all_lat))
+    out = {
+        "hosts": n_hosts, "points": per,
+        "threads": threads,
+        "requests": total,
+        "point_qps": total / max(elapsed, 1e-9),
+        "p50_ms": _pct_ms(all_lat, 50),
+        "p99_ms": _pct_ms(all_lat, 99),
+        "hit_ratio": hits / max(hits + misses, 1),
+        "plan_rebinds": delta("plan_cache", "hit_rebind"),
+    }
+
+    # ---- fused micro-batching phase: unique literals defeat the result
+    # cache so every request reaches the batch rendezvous
+    w0 = _serving.width_histogram()
+    prev_force, prev_win = sv.batcher.force, sv.batcher.window_s
+    fgot: list[list] = [[] for _ in range(fthreads)]
+
+    def fworker(i):
+        def body():
+            for k in range(fper):
+                u = i * fper + k
+                rs = executor.execute_one(
+                    f"SELECT time, value FROM pq WHERE "
+                    f"host = 'host_{u % n_hosts}' AND value > -{u}.0",
+                    session)
+                _sync()
+                fgot[i].append((u, rs))
+        return body
+
+    sv.batcher.force = True
+    sv.batcher.window_s = 0.002
+    try:
+        felapsed = _threads([fworker(i) for i in range(fthreads)])
+    finally:
+        sv.batcher.force, sv.batcher.window_s = prev_force, prev_win
+    w1 = _serving.width_histogram()
+    c2 = _serving.counters_snapshot()
+    for answers in fgot:
+        for u, rs in answers:
+            check_points(rs, ts, vals[u % n_hosts], floor=-float(u))
+    out["fused_widths"] = {str(k): w1.get(k, 0) - w0.get(k, 0)
+                           for k in sorted(w1)
+                           if w1.get(k, 0) - w0.get(k, 0)}
+    out["fused_requests"] = fthreads * fper
+    out["fused_queries"] = delta("batch", "fused", c1, c2)
+    out["fused_qps"] = fthreads * fper / max(felapsed, 1e-9)
+    out["answers_checked"] = 2 * n_hosts + total + fthreads * fper
+    if out["fused_queries"] <= 0:
+        raise AssertionError(
+            f"pointqps: no request was fused ({out['fused_widths']})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gray-failure tail latency (the straggler bed)
+# ---------------------------------------------------------------------------
+def run_straggler(*, iters=60, delay_ms=120.0, rows=4000) -> dict:
+    """Gray-failure tail-latency suite (parallel/health.py plane): a
+    2-replica straggler bed (chaos/straggler.py: real wire, real engine,
+    synthetic placement) of `rows` rows, scanned `iters` times in each of
+    three phases:
+
+      * healthy, hedging on: `healthy_hedges` fired should be 0;
+      * the pinned primary browned out by `delay_ms`, hedging on: a short
+        unmeasured adaptation stage first (`adaptation_hedges`,
+        `adapt_p99_ms`), then the measured window, every scan's first
+        attempt on the straggler and rescued by the hedge lane
+        (`hedged_p99_ms` about the hedge trigger plus the healthy
+        replica's latency);
+      * the same brownout with CNOSDB_HEDGE=0: the unprotected tail (p99
+        about the injected delay).
+
+    The hedged and the unhedged scan must each return the healthy
+    scan's batch byte for byte (`batch_bytes`), else it raises. The bed
+    lives in a directory of its own, removed at the end."""
+    from cnosdb_tpu_torch.chaos.straggler import StragglerBed, batch_bytes
+    from cnosdb_tpu_torch.parallel import health
+
+    prev_hedge = os.environ.pop("CNOSDB_HEDGE", None)
+    root = tempfile.mkdtemp(prefix="cnosdb_straggler_")
+    out: dict = {"iters": iters, "straggle_delay_ms": delay_ms,
+                 "rows": rows}
+    bed = None
+
+    def phase(tag, n):
+        lat = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            bed.scan_once(qid=f"{tag}-{i}")
+            _sync()
+            lat.append(time.perf_counter() - t0)
+        return _pct_ms(lat, 50), _pct_ms(lat, 99)
+
+    def hedge_counts():
+        hedge, _ = health.counters_snapshot()
+        agg: dict = {}
+        for (outcome, _reason), v in hedge.items():
+            agg[outcome] = agg.get(outcome, 0) + v
+        return {k: agg.get(k, 0)
+                for k in ("fired", "won", "lost", "cancelled",
+                          "suppressed")}
+
+    def parity(qid, what):
+        if batch_bytes(bed.scan_once(qid=qid)) != ref:
+            raise AssertionError(
+                f"straggler: the {what} scan drifted from the healthy one")
+
+    try:
+        bed = StragglerBed(root, rows=rows)
+        ref = batch_bytes(bed.scan_once(qid="warm-ref"))
+        health.SCORER.reset()
+        bed.warm_replicas()               # honest warm samples everywhere
+        phase("warm", 12)                 # real p95s in the sketches
+        health.reset_counters()
+        out["healthy_p50_ms"], out["healthy_p99_ms"] = phase(
+            "healthy", iters)
+        out["healthy_hedges"] = hedge_counts()
+
+        # brown out the pinned primary (the split targets the leader
+        # first, for read-your-writes, so health never re-routes the
+        # first attempt): every scan must be hedge-rescued
+        victim = bed.replicas[0]
+        victim.delay_s = delay_ms / 1e3
+        health.reset_counters()
+        _, out["adapt_p99_ms"] = phase("adapt", 8)
+        time.sleep(delay_ms / 1e3 + 0.05)   # hedge-loser replies land,
+        out["adaptation_hedges"] = hedge_counts()   # scorer sees them
+        health.reset_counters()
+        out["hedged_p50_ms"], out["hedged_p99_ms"] = phase(
+            "straggle", iters)
+        out["hedged"] = hedge_counts()
+        parity("parity", "hedged")
+
+        os.environ["CNOSDB_HEDGE"] = "0"
+        health.SCORER.reset()
+        out["nohedge_p50_ms"], out["nohedge_p99_ms"] = phase(
+            "legacy", iters)
+        parity("parity-nohedge", "unhedged")
+
+        out["straggler_over_healthy"] = \
+            out["hedged_p99_ms"] / max(out["healthy_p99_ms"], 1e-6)
+        out["nohedge_over_healthy"] = \
+            out["nohedge_p99_ms"] / max(out["healthy_p99_ms"], 1e-6)
+    finally:
+        _restore_env({"CNOSDB_HEDGE": prev_hedge})
+        if bed is not None:
+            bed.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# memory governance under overload
+# ---------------------------------------------------------------------------
+def storm_sql(u: int) -> str:
+    """The overload suite's storm: the u-varying predicate matches every
+    row (no host is 'zzN'), so the answer is the same but a fresh query
+    text defeats the result cache."""
+    return (f"SELECT host, count(DISTINCT value), sum(value), "
+            f"min(value), max(value) FROM ov WHERE host <> 'zz{u}' "
+            f"GROUP BY host")
+
+
+def storm_oracle(names, vals):
+    """→ check(rows): a storm's rows are one per host of `names`, each
+    with count(DISTINCT), min and max of vals[h] exactly and the sum
+    within rel 1e-12 of math.fsum."""
+    want = {n: (int(np.unique(v).size), math.fsum(v.tolist()),
+                float(v.min()), float(v.max()))
+            for n, v in zip(names, vals)}
+
+    def check(rows):
+        got: dict = {}
+        for r in rows:
+            assert len(r) == 5, r
+            assert r[0] not in got, f"host {r[0]} twice"
+            got[r[0]] = r[1:]
+        assert set(got) == set(want), (sorted(set(want) - set(got))[:3],
+                                       sorted(set(got) - set(want))[:3])
+        for host, (c, s, mn, mx) in got.items():
+            wc, ws, wmn, wmx = want[host]
+            assert int(c) == wc, (host, c, wc)
+            assert float(mn) == wmn and float(mx) == wmx, (host, mn, mx)
+            assert abs(float(s) - ws) <= 1e-12 * abs(ws), (host, s, ws)
+    return check
+
+
+def run_overload(executor, coord, tenant, db, session, *, n_hosts=256,
+                 per=200, factors=(0.5, 1.0, 2.0), seed=53) -> dict:
+    """Memory-governance overload suite (server/memory.py plane): a
+    closed-loop mix of ingest writers and wide count(DISTINCT) group-by
+    storms, run once per factor with the broker budget set so the same
+    workload sits at that factor of its measured footprint. Per phase it
+    reports the degradation ladder's actions from the broker counters
+    (pool reclaims, delayed, backpressure-shed and fail-closed writes,
+    queued-query sheds, group-state spills) and client p99s and rejects.
+
+    Every storm answer is held to a numpy oracle over the written
+    arrays (`storm_oracle`). `bit_identical` compares each with the
+    first, cold `CNOSDB_MEMORY=0` answer, as the reference does;
+    `spill_identical` with a warm `CNOSDB_MEMORY=0` repeat taken right
+    after it, so a route difference between the cold and the warm scan
+    is not read as governance changing an answer; `route_identical`
+    holds each row to the cold or the warm row of its host (the broker's
+    reclaims empty the scan cache, so a storm may scan cold). A write or
+    query refused by the ladder's typed errors is counted
+    (`write_rejects`, `query_shed`); any other error is raised. Raises
+    when governance is off, on any wrong answer, when a phase answers no
+    storm, and when a phase at 2x or more books no spill and unspill."""
+    from cnosdb_tpu_torch.errors import (AdmissionRejected, MemoryExceeded,
+                                         WriteBackpressure)
+    from cnosdb_tpu_torch.models.points import SeriesRows, WriteBatch
+    from cnosdb_tpu_torch.models.schema import ValueType
+    from cnosdb_tpu_torch.models.series import SeriesKey
+    from cnosdb_tpu_torch.server import memory as memgov
+
+    if not memgov.enabled():
+        raise RuntimeError("run_overload needs memory governance "
+                           "(CNOSDB_MEMORY=0 turns it off)")
+    rng = np.random.default_rng(seed)
+    executor.execute_one(
+        "CREATE TABLE IF NOT EXISTS ov (value DOUBLE, TAGS(host))",
+        session)
+    names = [f"host_{h:03d}" for h in range(n_hosts)]
+    ts = BASE_TS + np.arange(per, dtype=np.int64) * 1_000_000_000
+    vals = host_values(rng, n_hosts, per)
+    _write_hosts(coord, tenant, db, "ov", "value", names,
+                 np.broadcast_to(ts, vals.shape), vals)
+    coord.engine.flush_all()
+    check = storm_oracle(names, vals)
+
+    def governance_off(u):
+        prev = os.environ.get("CNOSDB_MEMORY")
+        os.environ["CNOSDB_MEMORY"] = "0"
+        try:
+            rows = executor.execute_one(storm_sql(u), session).rows()
+        finally:
+            _restore_env({"CNOSDB_MEMORY": prev})
+        check(rows)
+        return rows
+
+    # oracles of the system: the governance-off path on the static
+    # table, cold (the reference's) and warm
+    baseline = governance_off(0)
+    warm = governance_off(2)
+
+    def ingest_batch(tag: int) -> WriteBatch:
+        ts = (BASE_TS + np.arange(64, dtype=np.int64) * 1_000_000
+              + tag * 100_000_000_000)
+        wb = WriteBatch()
+        for s in range(4):
+            wb.add_series("ov_ing", SeriesRows(
+                SeriesKey("ov_ing", {"host": f"ing_{(tag + s) % 32}"}), ts,
+                {"value": (int(ValueType.FLOAT),
+                           rng.normal(0, 1, ts.size))}))
+        return wb
+
+    # footprint reference: one dry mixed round at the resting budget
+    coord.write_points(tenant, db, ingest_batch(0))
+    check(executor.execute_one(storm_sql(1), session).rows())
+    ref_used = max(memgov.BROKER.used(), 1 << 20)
+    # group-state estimate mirrors sql/executor._acc_group_bytes: the
+    # count(DISTINCT) sets dominate, 64 + 64*len per group
+    est_state = n_hosts * (64 + 16 + 64 + 64 * per + 3 * 24)
+
+    prev_group = memgov.GROUP_BYTES
+    prev_delay = memgov.WRITE_DELAY_MS
+    memgov.WRITE_DELAY_MS = 100     # keep the shed path fast, not 2s
+    q_threads, q_iters = 2, 5
+    w_threads, w_iters = 2, 10
+    out: dict = {"table_rows": n_hosts * per, "ref_used_bytes": ref_used,
+                 "group_state_est_bytes": est_state, "phases": {}}
+    all_identical = True
+    all_spill_identical = True
+    all_route_identical = True
+    try:
+        for factor in factors:
+            budget = max(int(ref_used / factor), 1 << 16)
+            gbudget = int(est_state / factor)
+            memgov.BROKER.resize(budget)
+            memgov.GROUP_BYTES = gbudget
+            coord.engine.flush_all()    # comparable resting state
+            c0 = memgov.counters_snapshot()
+            qlat: list[list[float]] = [[] for _ in range(q_threads)]
+            wlat: list[list[float]] = [[] for _ in range(w_threads)]
+            rejects = [0] * w_threads
+            shed: list[str] = []
+            answers: list = []
+            tag = int(factor * 10)
+
+            def qworker(i, tag=tag, qlat=qlat, shed=shed, answers=answers):
+                def body():
+                    for k in range(q_iters):
+                        u = tag * 1000 + i * q_iters + k
+                        t0 = time.perf_counter()
+                        try:
+                            rs = executor.execute_one(storm_sql(u), session)
+                        except (AdmissionRejected, MemoryExceeded) as e:
+                            shed.append(repr(e)[:120])   # the ladder's shed
+                            continue
+                        _sync()
+                        qlat[i].append(time.perf_counter() - t0)
+                        answers.append(rs.rows())
+                return body
+
+            def wworker(i, tag=tag, wlat=wlat, rejects=rejects):
+                def body():
+                    for k in range(w_iters):
+                        t0 = time.perf_counter()
+                        try:
+                            coord.write_points(
+                                tenant, db,
+                                ingest_batch(tag * 1000 + i * w_iters + k))
+                        except (WriteBackpressure, MemoryExceeded):
+                            rejects[i] += 1   # the ladder's typed shed
+                            time.sleep(0.05)
+                            continue
+                        wlat[i].append(time.perf_counter() - t0)
+                return body
+
+            _threads([qworker(i) for i in range(q_threads)]
+                     + [wworker(i) for i in range(w_threads)])
+            c1 = memgov.counters_snapshot()
+            for rows in answers:
+                check(rows)
+
+            def delta(pool, action):
+                return c1.get((pool, action), 0) - c0.get((pool, action), 0)
+
+            qs = np.concatenate([np.asarray(x) for x in qlat])
+            ws = np.concatenate([np.asarray(x) for x in wlat])
+            identical = not shed and all(r == baseline for r in answers)
+            spill_identical = all(r == warm for r in answers)
+            route_identical = all(
+                len(r) == len(baseline)
+                and all(g in (c, w) for g, c, w in zip(r, baseline, warm))
+                for r in answers)
+            all_identical = all_identical and identical
+            all_spill_identical = all_spill_identical and spill_identical
+            all_route_identical = all_route_identical and route_identical
+            name = f"{factor:g}x"
+            out["phases"][name] = {
+                "budget_bytes": budget,
+                "group_budget_bytes": gbudget,
+                "query_ok": int(qs.size),
+                "query_p99_ms": _pct_ms(qs, 99),
+                "write_ok": int(ws.size),
+                "write_p99_ms": _pct_ms(ws, 99),
+                "write_rejects": sum(rejects),
+                "spills": delta("query_groups", "spill"),
+                "unspills": delta("query_groups", "unspill"),
+                "write_delayed": delta("write", "delayed"),
+                "write_backpressure_shed": delta("write",
+                                                 "backpressure_shed"),
+                "write_fail_hard": delta("write", "fail_hard"),
+                "queued_shed": delta("admission", "shed_queued"),
+                "reclaims": sum(
+                    v - c0.get(k, 0) for k, v in c1.items()
+                    if k[1] == "reclaim"),
+                "query_shed": len(shed),
+                "storms_checked": len(answers),
+                "bit_identical": identical,
+                "spill_identical": spill_identical,
+                "route_identical": route_identical,
+                **({"query_errors": shed[:3]} if shed else {}),
+            }
+            ph = out["phases"][name]
+            if not answers:
+                raise AssertionError(f"overload {name}: no storm answered "
+                                     f"({shed[:3]})")
+            if factor >= 2 and not (ph["spills"] and ph["unspills"]):
+                raise AssertionError(
+                    f"overload {name}: the group-state spiller never ran "
+                    f"({ph['spills']} spills, {ph['unspills']} unspills)")
+    finally:
+        memgov.BROKER.resize(0)         # back to config/auto
+        memgov.GROUP_BYTES = prev_group
+        memgov.WRITE_DELAY_MS = prev_delay
+    out["bit_identical"] = all_identical
+    out["spill_identical"] = all_spill_identical
+    out["route_identical"] = all_route_identical
+    out["cold_warm_identical"] = baseline == warm
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh lane swept over 1, 2, 4 and 8 devices
+# ---------------------------------------------------------------------------
+MESH_SQL = ("SELECT host, date_bin(INTERVAL '1 hour', time) AS t, "
+            "count(*) AS c, sum(v) AS sv, min(v) AS mn, max(v) AS mx "
+            "FROM dg GROUP BY host, t")
+HOUR_NS = 3_600_000_000_000
+
+
+@contextlib.contextmanager
+def mesh_pool(devices):
+    """Within the block the mesh lane's device pool is `devices` (a list:
+    `[cuda:0] * 8` is eight logical shards on one card), or the real pool
+    when None. → the pool."""
+    from cnosdb_tpu_torch.ops import placement
+
+    saved = placement.mesh_devices
+    if devices is not None:
+        placement.mesh_devices = lambda: list(devices)
+    try:
+        yield list(placement.mesh_devices())
+    finally:
+        placement.mesh_devices = saved
+
+
+def mesh_table(n_hosts: int, per: int, seed: int = 41):
+    """→ (names, ts [n_hosts, per], vals [n_hosts, per]): the mesh
+    suite's table, `per` points a host over about 48 one-hour buckets,
+    host h's times offset by h ns, as the reference draws it."""
+    step = max(48 * HOUR_NS // per, 1)
+    rng = np.random.default_rng(seed)
+    names = [f"host_{h:02d}" for h in range(n_hosts)]
+    ts = np.stack([BASE_TS + np.arange(per, dtype=np.int64) * step + h
+                   for h in range(n_hosts)])
+    return names, ts, host_values(rng, n_hosts, per)
+
+
+def mesh_oracle(names, ts, vals):
+    """→ check(rs): MESH_SQL's answer has one row per (host, hour) that
+    holds data, in any order, with count, min and max exact and the sum
+    within rel 1e-12 of math.fsum."""
+    n_hosts, per = vals.shape
+    hid = np.repeat(np.arange(n_hosts, dtype=np.int64), per)
+    t = (ts // HOUR_NS * HOUR_NS).ravel()
+    v = vals.ravel()
+    order = np.lexsort((t, hid))
+    hid, t, v = hid[order], t[order], v[order]
+    starts = np.flatnonzero(np.r_[True, (np.diff(hid) != 0)
+                                  | (np.diff(t) != 0)])
+    w_h, w_t = hid[starts], t[starts]
+    w_c = np.diff(np.r_[starts, len(v)])
+    w_mn = np.minimum.reduceat(v, starts)
+    w_mx = np.maximum.reduceat(v, starts)
+    w_s = np.array([math.fsum(p.tolist()) for p in np.split(v, starts[1:])])
+    index = {n: i for i, n in enumerate(names)}
+
+    def check(rs):
+        assert list(rs.names) == ["host", "t", "c", "sv", "mn", "mx"], \
+            rs.names
+        g_h = np.array([index[str(n)] for n in _col(rs, "host")],
+                       dtype=np.int64)
+        g_t = np.asarray(_col(rs, "t")).astype(np.int64)
+        assert len(g_h) == len(w_h), (len(g_h), len(w_h))
+        o = np.lexsort((g_t, g_h))
+        assert np.array_equal(g_h[o], w_h) and np.array_equal(g_t[o], w_t), \
+            "groups differ"
+        assert np.array_equal(
+            np.asarray(_col(rs, "c")).astype(np.int64)[o], w_c), "count"
+        for col, want in (("mn", w_mn), ("mx", w_mx)):
+            assert np.array_equal(
+                np.asarray(_col(rs, col), dtype=np.float64)[o], want), col
+        got_s = np.asarray(_col(rs, "sv"), dtype=np.float64)[o]
+        assert np.all(np.abs(got_s - w_s) <= 1e-12 * np.abs(w_s)), "sum"
+    return check
+
+
+def run_mesh(executor, coord, tenant, db, session, *, rows=1_000_000,
+             iters=5, n_hosts=32, devices=None, seed=41) -> dict:
+    """Mesh execution plane sweep (ops/mesh_exec.py +
+    parallel/distributed_agg.py): the TSBS `double_groupby` shape (host x
+    1 h bucket, count/sum/min/max) over an 8-shard table of `rows` rows,
+    swept across 1, 2, 4 and 8 mesh devices through CNOSDB_MESH_DEVICES
+    (each width takes the first d entries of the pool), plus the
+    CNOSDB_MESH=0 legacy per-batch kernels and host merge as the
+    baseline. Timings are warm steady state (two untimed runs first).
+
+    `devices` is the pool: None is placement.mesh_devices(), a list is
+    used as given (`[cuda:0] * 8`: eight logical shards on one card).
+    `cards` is the number of distinct devices in it; where it is below
+    8, `speedup_8x` is labelled as logical shards (`speedup_8x_of`), not
+    scaling. Every answer is held to a numpy oracle (`mesh_oracle`);
+    `bit_identical` reports whether every width's answer repr-equals
+    the legacy one. Raises on a wrong answer, and unless every engaged
+    query booked the collective merge and no host merge
+    (`zero_host_merges`)."""
+    from cnosdb_tpu_torch.parallel import mesh
+    from cnosdb_tpu_torch.sql.executor import Session
+    from cnosdb_tpu_torch.utils import stages as _stages
+
+    executor.execute_one(
+        "CREATE DATABASE IF NOT EXISTS meshbench WITH SHARD 8 REPLICA 1",
+        session)
+    ms = Session(database="meshbench")
+    per = max(64, rows // n_hosts)
+    names, ts, vals = mesh_table(n_hosts, per, seed)
+    _write_hosts(coord, tenant, "meshbench", "dg", "v", names, ts, vals)
+    coord.engine.flush_all()
+    coord.engine.compact_all()
+    check = mesh_oracle(names, ts, vals)
+    del ts, vals
+
+    def norm(rs):
+        return (rs.names, [repr(c.tolist()) for c in rs.columns],
+                [str(c.dtype) for c in rs.columns])
+
+    keep_stages = ("kernel_ms", "merge_ms", "finalize_ms",
+                   "mesh.plan_ms", "mesh.upload_ms", "mesh.collective_ms",
+                   "mesh.assemble_ms", "mesh.plan_cache_hit",
+                   "mesh.plan_cache_miss")
+
+    def timed_pass():
+        """→ (p50_ms, p99_ms, mean per-stage ms, outcome deltas, norm)."""
+        for _ in range(2):              # scan + prep caches, then settled
+            check(executor.execute_one(MESH_SQL, ms))
+        c0 = mesh.outcomes_snapshot()
+        lat, snaps, answers = [], [], []
+        for _ in range(iters):
+            prof = _stages.QueryProfile()
+            t0 = time.perf_counter()
+            with _stages.profile_scope(prof):
+                rs = executor.execute_one(MESH_SQL, ms)
+                _sync()
+            lat.append(time.perf_counter() - t0)
+            snaps.append(prof.snapshot())
+            answers.append(rs)
+        c1 = mesh.outcomes_snapshot()
+        for rs in answers:
+            check(rs)
+        stg = {}
+        for k in keep_stages:
+            tot = sum(s.get(k, 0) for s in snaps)
+            if tot:
+                stg[k] = tot / iters
+        outcomes = {f"{lane}:{reason}": v - c0.get((lane, reason), 0)
+                    for (lane, reason), v in c1.items()
+                    if v - c0.get((lane, reason), 0)}
+        return (_pct_ms(lat, 50), _pct_ms(lat, 99), stg, outcomes,
+                norm(answers[-1]))
+
+    knobs = ("CNOSDB_MESH", "CNOSDB_MESH_DEVICES",
+             "CNOSDB_MESH_MIN_DEVICES", "CNOSDB_MESH_MIN_ROWS")
+    prev_env = {k: os.environ.get(k) for k in knobs}
+    prev_serving = executor.serving
+    # repeats must reach the aggregate path, not the serving result cache
+    executor.serving = None
+    out: dict = {"rows": n_hosts * per, "hosts": n_hosts, "iters": iters,
+                 "host_cores": len(os.sched_getaffinity(0)), "devices": {}}
+    identical = True
+    zero_host = True
+    try:
+        with mesh_pool(devices) as pool:
+            avail = len(pool)
+            cards = len({str(d) for d in pool})
+            out.update(devices_available=avail, cards=cards,
+                       pool=[str(d) for d in pool])
+            os.environ["CNOSDB_MESH_MIN_ROWS"] = "0"
+            os.environ["CNOSDB_MESH_MIN_DEVICES"] = "1"
+
+            # legacy host-merge baseline: per-batch kernels + vec merge
+            os.environ["CNOSDB_MESH"] = "0"
+            p50, p99, stg, outc, oracle = timed_pass()
+            if outc.get("exec:engaged", 0):
+                raise AssertionError(f"mesh: the legacy pass engaged {outc}")
+            out["legacy"] = {"p50_ms": p50, "p99_ms": p99, "stages": stg}
+
+            os.environ["CNOSDB_MESH"] = "1"
+            for d in (1, 2, 4, 8):
+                if d > avail:
+                    out["devices"][str(d)] = {
+                        "skipped": f"only {avail} devices in the pool"}
+                    continue
+                os.environ["CNOSDB_MESH_DEVICES"] = str(d)
+                p50, p99, stg, outc, got = timed_pass()
+                engaged = outc.get("exec:engaged", 0)
+                ok = engaged == iters \
+                    and outc.get("merge:collective", 0) == engaged \
+                    and not outc.get("merge:host", 0)
+                zero_host = zero_host and ok
+                identical = identical and got == oracle
+                out["devices"][str(d)] = {
+                    "p50_ms": p50, "p99_ms": p99, "stages": stg,
+                    "outcomes": outc, "bit_identical": got == oracle}
+        d1 = out["devices"].get("1", {}).get("p50_ms")
+        d8 = out["devices"].get("8", {}).get("p50_ms")
+        if d1 and d8:
+            out["speedup_8x"] = d1 / d8
+            out["speedup_8x_of"] = (
+                "8 cards" if cards >= 8 else
+                f"8 logical shards on {cards} device(s): not scaling")
+            out["speedup_vs_host_merge"] = out["legacy"]["p50_ms"] / d8
+    finally:
+        executor.serving = prev_serving
+        _restore_env(prev_env)
+    out["bit_identical"] = identical
+    out["zero_host_merges"] = zero_host
+    if not zero_host:
+        raise AssertionError(
+            "mesh: a query did not merge through the collective: "
+            + str({d: r.get("outcomes") for d, r in out["devices"].items()}))
     return out

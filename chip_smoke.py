@@ -3,15 +3,16 @@ scan-aggregate served end to end, on the legacy per-vnode path and on the
 mesh execution lane, the ClickBench hits queries on the X4 device routes
 and on the host routes, four data-plane suites (an IoT-shaped table at
 4,000 trucks, log search, a dashboard over a materialized view, a
-tiered cold scan), the server entry point as a three-node cluster
+tiered cold scan), the serving, gray-failure, memory-governance and
+mesh-sweep suites, the server entry point as a three-node cluster
 through the chaos plane, both hand-written kernels held against their
 plain PyTorch versions and the torch library ops, and the X4 ops against
 their plain numpy ones.
 
     python3 chip_smoke.py [--seed 123] [--rows 10000000]
                           [--hits-rows 4500000] [--iot-scale 4000]
-                          [--iot-points 2160] [--suite-rows 10000000]
-                          [--cluster-rows 864000]
+                          [--iot-points 1440] [--suite-rows 6000000]
+                          [--mesh-rows 10000000] [--cluster-rows 864000]
 
 Phases, in order:
   1. the card's name and power limit (nvidia-smi);
@@ -93,7 +94,7 @@ Phases, in order:
      suite's 13 query names over --iot-scale trucks x --iot-points
      readings (bench_suites.py's IoT-shaped table, 2 tags and one
      measurement, at TSBS --scale=4000 --log-interval=10s trucks for
-     6 h: 8,640,000 rows), log search over --suite-rows // 4 OTLP
+     4 h: 5,760,000 rows), log search over --suite-rows // 4 OTLP
      spans, each query once cold (scan cache emptied) and three times
      warm, every answer against its oracle; the dashboard (10 steps of --suite-rows // 100
      rows, the panel query with and without its materialized view, with
@@ -104,6 +105,21 @@ Phases, in order:
      downloading fewer bytes); X2 and K2 must launch and no page book a
      device-decode kernel_error; one cold and one warm IoT query
      profiled; prints {"suites": {...}} on a line of its own;
+  6c. the other four suites of bench_suites_torch.py, each in a data
+     directory of its own, data from --seed, K1/K2/X2 counts and the
+     mesh outcomes zeroed just before and read just after: run_pointqps
+     (64 hosts x 64 points, 4 threads x 5,000 point queries, then 8 x 40
+     fused) through a serving plane of its own, run_straggler (the
+     hedge lane, 60 scans a phase, a 120 ms brownout), run_overload (256
+     hosts x 200 points, storms and writers at 0.5x, 1x and 2x of the
+     footprint) and run_mesh (--mesh-rows rows, widths 1, 2, 4 and 8 of
+     [cuda:0] * 8 as logical shards, and of every card where there are
+     several, against the legacy merge); every answer against its
+     oracle inside the suite; fails on a suite's error, no fused
+     request, no spill at 2x, a mesh query off the collective, no X2 or
+     K2 launch, a kernel_error page, or a straggler whose hedged p99 is
+     not below the unhedged one or whose unhedged p99 is below the
+     delay; prints {"suites2": {...}} on a line of its own;
   7. the cluster: one meta process and three query_tskv nodes of
      `python -m cnosdb_tpu_torch.server.main run` on the card (each must
      hold a CUDA context), TSBS devops cpu-only (--cluster-rows, one day at
@@ -143,8 +159,8 @@ Phases, in order:
      its plain version (twice, for bit-stable output), with its time, the
      plain version's time, the torch library ops' time for K1, and its
      bound, and K1 again at the whole TSBS table and at the shape the hits
-     phase gave it most, and each at the shape the suites phase gave it
-     most; each X4
+     phase gave it most, and each at the shape each suites phase (6b,
+     6c) gave it most; each X4
      op likewise against its plain numpy version at the largest shape the
      hits phase gave it;
   9. assertions: scan device is cuda, the fused program launched, K1 ran on
@@ -154,7 +170,8 @@ Phases, in order:
 Prints a JSON line of the analysis phase ({"analysis": {...}}), one of
 the graft phase ({"graft": {...}}), one of the SQL corpora
 ({"sqllogic": {...}}), one of the semantics phase ({"semantics":
-{...}}), one of the suites ({"suites": {...}}), a JSON line of
+{...}}), one of each suites phase ({"suites": {...}}, {"suites2":
+{...}}), a JSON line of
 per-kernel numbers
 (with an "x4" list), the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}.
@@ -742,21 +759,6 @@ def check_legacy(rs, ref, keys, exact, close) -> None:
                                    [order], rtol=1e-12, atol=0, err_msg=col)
 
 
-@contextlib.contextmanager
-def logical_mesh(devices):
-    """Within the block the mesh pool is `devices` (4 × cuda:0: logical
-    shards on one card), or the real pool when None."""
-    from cnosdb_tpu_torch.ops import placement
-
-    saved = placement.mesh_devices
-    if devices is not None:
-        placement.mesh_devices = lambda: list(devices)
-    try:
-        yield
-    finally:
-        placement.mesh_devices = saved
-
-
 def mesh_phase(ex, session, coord, data, legacy, checks) -> dict:
     """Step 5: the mesh lane over the ingested table. `legacy` holds the
     pinned path's warm answers and wall times by query name, `checks`
@@ -794,7 +796,7 @@ def mesh_phase(ex, session, coord, data, legacy, checks) -> dict:
                  ("double_groupby_all", False), ("double_groupby_all", False),
                  ("last_loc", False), ("last_loc", False)]
         seen = set()
-        with logical_mesh(devices):
+        with bst.mesh_pool(devices):
             m = mesh.get_mesh()
             log(f"# mesh {label}: {mesh.mesh_size(m)} shards on "
                 f"{sorted({str(d) for d in m.devices})}")
@@ -2259,6 +2261,174 @@ def suites_phase(seed: int, iot_scale: int, iot_points: int,
     out["seconds"] = time.perf_counter() - t_phase
     log(f"# suites phase: {out['seconds']:.2f}s")
     print(json.dumps({"suites": {
+        **out, **{k: {str(at): n for at, n in out[k].items()}
+                  for k in ("K1_shapes", "K2_shapes")}}}), flush=True)
+    return out
+
+
+# ------------------------------------------------------------ suites 6c
+# bench_suites.py's serving, gray-failure, memory-governance and mesh
+# suites, at the reference's sizes (the mesh sweep at --mesh-rows). Each
+# suite's seed is --seed plus the reference's own.
+SUITE2_SEEDS = {"pointqps": 47, "overload": 53, "mesh": 41}
+
+
+def suites2_phase(seed: int, mesh_rows: int) -> dict:
+    """Step 6c: run_pointqps through a serving plane of its own (the
+    process runs with CNOSDB_SERVING=0), run_straggler, run_overload and
+    run_mesh over [cuda:0] * 8 (logical shards) and, where there are
+    several cards, over every card; each in a data directory of its own,
+    every answer held to its oracle inside the suite. K1, K2 and X2
+    counts and the mesh outcomes zeroed just before and read just after.
+    Raises on a suite's exception, no fused request, no X2 or K2 launch,
+    a device-decode kernel_error page, a mesh query off the collective,
+    or a straggler run whose hedged p99 is not below the unhedged one or
+    whose unhedged p99 is below the injected delay. → the phase's JSON."""
+    import torch
+
+    import bench_suites_torch as bst
+    from cnosdb_tpu_torch.ops import device_decode as dd
+    from cnosdb_tpu_torch.ops import fused
+    from cnosdb_tpu_torch.ops import pallas_kernels as pk
+    from cnosdb_tpu_torch.parallel import mesh
+    from cnosdb_tpu_torch.parallel.coordinator import Coordinator
+    from cnosdb_tpu_torch.parallel.meta import DEFAULT_TENANT, MetaStore
+    from cnosdb_tpu_torch.server.serving import ServingPlane
+    from cnosdb_tpu_torch.sql.executor import QueryExecutor, Session
+    from cnosdb_tpu_torch.storage.engine import TsKv
+    from cnosdb_tpu_torch.utils.memory_pool import MemoryPool
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_suites2_")
+    coords = []
+
+    def open_db(name):
+        meta = MetaStore(os.path.join(root, name, "meta.json"))
+        pool = MemoryPool(32 << 30)
+        coord = Coordinator(meta, TsKv(os.path.join(root, name, "data")),
+                            memory_pool=pool)
+        coords.append(coord)
+        ex = QueryExecutor(meta, coord, memory_pool=pool)
+        s = Session(database="public")
+        ex.execute_one(f"ALTER DATABASE public SET SHARD {SHARDS}", s)
+        return coord, ex, s
+
+    def timed(fn):
+        before = bst.launch_counts()
+        t = time.perf_counter()
+        res = fn()
+        res["seconds"] = time.perf_counter() - t
+        after = bst.launch_counts()
+        res["launches"] = {k: after[k] - before[k] for k in after}
+        return res
+
+    cards = torch.cuda.device_count()
+    pools = [("logical", [torch.device("cuda", 0)] * 8)]
+    if cards > 1:
+        pools.append(("cards", None))
+    out: dict = {}
+    try:
+        pk.launches = 0
+        pk.launch_shapes.clear()
+        dd.xor_launches = 0
+        dd.xor_launch_shapes.clear()
+        fused.launch_count = 0
+        mesh.reset_counters()
+        outcomes0 = dd.outcomes_snapshot()
+
+        coord, ex, s = open_db("pointqps")
+        ex.serving = ServingPlane(ex)
+        pq = out["pointqps"] = timed(lambda: bst.run_pointqps(
+            ex, coord, DEFAULT_TENANT, "public", s,
+            seed=seed + SUITE2_SEEDS["pointqps"]))
+        log(f"# suites2 pointqps: {pq['requests']} requests at "
+            f"{pq['point_qps']:.1f} qps, p50 {pq['p50_ms']:.3f} ms, p99 "
+            f"{pq['p99_ms']:.3f} ms, hit ratio {pq['hit_ratio']:.4f}; fused "
+            f"{pq['fused_queries']} of {pq['fused_requests']} at {pq['fused_qps']:.1f} "
+            f"qps, widths {pq['fused_widths']}; {pq['answers_checked']} "
+            f"answers against the oracle; launches {pq['launches']} "
+            f"({pq['seconds']:.2f}s)")
+
+        sg = out["straggler"] = timed(bst.run_straggler)
+        log(f"# suites2 straggler: p99 healthy {sg['healthy_p99_ms']:.2f} "
+            f"ms, hedged {sg['hedged_p99_ms']:.2f} ms, unhedged "
+            f"{sg['nohedge_p99_ms']:.2f} ms (delay "
+            f"{sg['straggle_delay_ms']} ms); hedges healthy "
+            f"{sg['healthy_hedges']}, browned out {sg['hedged']}; both "
+            f"scans equal the healthy one ({sg['seconds']:.2f}s)")
+        if not sg["hedged_p99_ms"] < sg["nohedge_p99_ms"]:
+            raise AssertionError("suites2 straggler: the hedged p99 is not "
+                                 "below the unhedged one")
+        if sg["nohedge_p99_ms"] < sg["straggle_delay_ms"]:
+            raise AssertionError("suites2 straggler: the unhedged p99 is "
+                                 "below the delay: no brownout applied")
+
+        coord, ex, s = open_db("overload")
+        ov = out["overload"] = timed(lambda: bst.run_overload(
+            ex, coord, DEFAULT_TENANT, "public", s,
+            seed=seed + SUITE2_SEEDS["overload"]))
+        for name, ph in ov["phases"].items():
+            log(f"# suites2 overload {name}: budget {ph['budget_bytes']} B, "
+                f"group budget {ph['group_budget_bytes']} B; storms "
+                f"{ph['query_ok']} (p99 {ph['query_p99_ms']} ms, shed "
+                f"{ph['query_shed']}), writes {ph['write_ok']} (p99 "
+                f"{ph['write_p99_ms']} ms, rejects {ph['write_rejects']}); "
+                f"spills {ph['spills']}, unspills {ph['unspills']}, "
+                f"reclaims {ph['reclaims']}; bit_identical "
+                f"{ph['bit_identical']}, spill_identical "
+                f"{ph['spill_identical']}, route_identical "
+                f"{ph['route_identical']}")
+        log(f"# suites2 overload: {ov['table_rows']} rows, every storm "
+            f"against the oracle; cold and warm governance-off answers "
+            f"equal: {ov['cold_warm_identical']}; launches "
+            f"{ov['launches']} ({ov['seconds']:.2f}s)")
+
+        out["mesh"] = {}
+        for label, devices in pools:
+            coord, ex, s = open_db(f"mesh_{label}")
+            res = out["mesh"][label] = timed(lambda: bst.run_mesh(
+                ex, coord, DEFAULT_TENANT, "public", s, rows=mesh_rows,
+                devices=devices, seed=seed + SUITE2_SEEDS["mesh"]))
+            log(f"# suites2 mesh over {res['pool']}: {res['rows']} rows; "
+                f"legacy p50 {res['legacy']['p50_ms']:.2f} ms; "
+                + "; ".join(
+                    f"{d}: p50 {r['p50_ms']:.2f} ms, collective "
+                    f"{r['stages'].get('mesh.collective_ms', 0):.2f} ms, "
+                    f"{r['outcomes']}" for d, r in res["devices"].items()
+                    if "p50_ms" in r)
+                + f"; speedup_8x {res.get('speedup_8x')} "
+                f"({res.get('speedup_8x_of')}); bit_identical "
+                f"{res['bit_identical']}; every answer against the oracle; "
+                f"launches {res['launches']} ({res['seconds']:.2f}s)")
+            coord.close()
+            coords.remove(coord)
+
+        launches = bst.launch_counts()
+        out["launches"] = launches
+        out["K1_shapes"] = dict(pk.launch_shapes)
+        out["K2_shapes"] = dict(dd.xor_launch_shapes)
+        out["mesh_outcomes"] = {f"{lane}:{reason}": n for (lane, reason), n
+                                in mesh.outcomes_snapshot().items()}
+        outcomes = dd.outcomes_snapshot()
+        errors = outcomes.get(("host", "kernel_error"), 0) \
+            - outcomes0.get(("host", "kernel_error"), 0)
+        log(f"# suites2: launches {launches}, K1 {out['K1_shapes']}, K2 "
+            f"{out['K2_shapes']}; mesh outcomes {out['mesh_outcomes']}; "
+            f"device decode kernel_error pages {errors}")
+        if launches["X2"] <= 0:
+            raise AssertionError("suites2: X2 never launched")
+        if launches["K2"] <= 0:
+            raise AssertionError("suites2: K2 never launched")
+        if errors:
+            raise AssertionError("suites2: device decode booked "
+                                 "kernel_error pages")
+    finally:
+        for c in coords:
+            c.close()
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"# suites2 phase: {out['seconds']:.2f}s")
+    print(json.dumps({"suites2": {
         **out, **{k: {str(at): n for at, n in out[k].items()}
                   for k in ("K1_shapes", "K2_shapes")}}}), flush=True)
     return out
@@ -3852,12 +4022,17 @@ def main(argv=None) -> int:
     # TSBS devops cpu-only at scale 100 for one day (10 s points)
     ap.add_argument("--cluster-rows", type=int, default=864_000)
     # phase 6b: bench_suites.py's IoT-shaped table at TSBS's
-    # --scale=4000 trucks, 10 s apart for 6 h (2,160 readings a truck);
+    # --scale=4000 trucks, 10 s apart for 4 h (1,440 readings a truck);
     # log search takes suite_rows // 4 spans, the dashboard and the cold
-    # scan 10 steps of suite_rows // 100 and suite_rows // 50 rows
+    # scan 10 steps of suite_rows // 100 and suite_rows // 50 rows. Both
+    # depths are cut so that the whole script keeps its margin under the
+    # 1,200 s limit beside phase 6c
     ap.add_argument("--iot-scale", type=int, default=4000)
-    ap.add_argument("--iot-points", type=int, default=2160)
-    ap.add_argument("--suite-rows", type=int, default=10_000_000)
+    ap.add_argument("--iot-points", type=int, default=1440)
+    ap.add_argument("--suite-rows", type=int, default=6_000_000)
+    # phase 6c: the mesh sweep over 32 hosts x 48 one-hour buckets, a
+    # tenth of bench.py's 100 M rows as the TSBS phases take
+    ap.add_argument("--mesh-rows", type=int, default=10_000_000)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -4045,6 +4220,11 @@ def main(argv=None) -> int:
     suites_run = suites_phase(args.seed, args.iot_scale, args.iot_points,
                               args.suite_rows)
 
+    # 6c. the serving, gray-failure, governance and mesh-sweep suites,
+    # their own counts zeroed just before
+    torch.cuda.empty_cache()
+    suites2_run = suites2_phase(args.seed, args.mesh_rows)
+
     # 7. the port's server entry point: a three-node cluster on the card,
     # through the chaos plane
     torch.cuda.empty_cache()
@@ -4115,28 +4295,34 @@ def main(argv=None) -> int:
             f"kernel_ms); max |sum - plain| {rh['max_abs_err']:.3g}; "
             "count/min/max exact, sum rtol 1e-12; bit-stable over two runs")
 
-    # K1 and K2 at the shapes the suites phase gave them most
+    # K1 and K2 at the shapes the suites phases gave them most
     suites_k: dict = {}
-    for kid, shapes in (("K1", suites_run["K1_shapes"]),
-                        ("K2", suites_run["K2_shapes"])):
-        if not shapes:
-            continue
-        at = _most_launched(shapes)
-        if kid == "K1":
-            r = compare_k1(at, args.seed + 4, dev,
-                           scattered=at[1] < pk.W_WIN, call_iters=5)
-        else:
-            r = compare_k2(at, args.seed + 5, dev)
-        suites_k[kid] = {"at": list(at), "launches_at": shapes[at],
+    suites2_k: dict = {}
+    for phase, run, into, seed_at in (("suites", suites_run, suites_k, 4),
+                                      ("suites2", suites2_run, suites2_k,
+                                       6)):
+        for kid, shapes in (("K1", run["K1_shapes"]),
+                            ("K2", run["K2_shapes"])):
+            if not shapes:
+                continue
+            at = _most_launched(shapes)
+            if kid == "K1":
+                r = compare_k1(at, args.seed + seed_at, dev,
+                               scattered=at[1] < pk.W_WIN, call_iters=5)
+            else:
+                r = compare_k2(at, args.seed + seed_at + 1, dev)
+            into[kid] = {"at": list(at), "launches_at": shapes[at],
                          "library_ms": r.get("library_ms"),
                          **{k: r[k] for k in ("ms", "kernel_ms", "plain_ms",
                                               "bound_ms", "max_abs_err")}}
-        log(f"# {kid} at {at} (suites phase, {shapes[at]} of its "
-            f"{suites_run['launches'][kid]} launches): ms {r['ms']:.4f}, "
-            f"kernel_ms {r['kernel_ms']:.4f}, plain {r['plain_ms']:.4f} ms, "
-            + (f"library {r['library_ms']:.4f} ms, " if kid == "K1" else "")
-            + f"bound {r['bound_ms']:.5f} ms for {r['bytes']} B; max |err| "
-            f"{r['max_abs_err']:.3g}; bit-stable over two runs")
+            log(f"# {kid} at {at} ({phase} phase, {shapes[at]} of its "
+                f"{run['launches'][kid]} launches): ms {r['ms']:.4f}, "
+                f"kernel_ms {r['kernel_ms']:.4f}, plain {r['plain_ms']:.4f} "
+                "ms, "
+                + (f"library {r['library_ms']:.4f} ms, " if kid == "K1"
+                   else "")
+                + f"bound {r['bound_ms']:.5f} ms for {r['bytes']} B; max "
+                f"|err| {r['max_abs_err']:.3g}; bit-stable over two runs")
 
     x4 = compare_x4(hits_run, hits, args.seed, dev)
     sums = compare_segment_sum(args.seed, dev)
@@ -4153,10 +4339,13 @@ def main(argv=None) -> int:
          "hits_launches": hits_run["K1"], "hits": hits_k1,
          "suites_launches": suites_run["launches"]["K1"],
          "suites": suites_k.get("K1"),
+         "suites2_launches": suites2_run["launches"]["K1"],
+         "suites2": suites2_k.get("K1"),
          "whole_table": whole_k1,
          "max_abs_err": max(r1["max_abs_err"], rb["max_abs_err"],
                             hits_k1["max_abs_err"] if hits_k1 else 0.0,
-                            suites_k.get("K1", {}).get("max_abs_err", 0.0)),
+                            suites_k.get("K1", {}).get("max_abs_err", 0.0),
+                            suites2_k.get("K1", {}).get("max_abs_err", 0.0)),
          "ms": r1["ms"], "kernel_ms": r1["kernel_ms"],
          "call_ms": r1["call_ms"], "plain_ms": r1["plain_ms"],
          "bound_ms": r1["bound_ms"], "bound_by": "bytes",
@@ -4171,6 +4360,8 @@ def main(argv=None) -> int:
          "hits_launches": hits_run["K2"],
          "suites_launches": suites_run["launches"]["K2"],
          "suites": suites_k.get("K2"),
+         "suites2_launches": suites2_run["launches"]["K2"],
+         "suites2": suites2_k.get("K2"),
          "max_abs_err": r2["max_abs_err"],
          "ms": r2["ms"], "kernel_ms": r2["kernel_ms"],
          "scan_ms": r2["scan_ms"], "plain_ms": r2["plain_ms"],

@@ -1111,6 +1111,36 @@ class Coordinator:
                     filter_key: str | None = None,
                     n_threads: int = 1,
                     compressed_spec=None) -> ScanBatch | None:
+        """One local vnode scan (`_scan_local_once`). A compaction or an
+        L0 promotion that lands between the scan's file set and its
+        reader opens unlinks a file the scan still names: the scan then
+        runs again over the new file set, at most twice more. A file
+        missing from a file set (ids and levels) that did not move is
+        raised."""
+        def file_set(v):
+            with v.lock:
+                return frozenset((fm.file_id, fm.level)
+                                 for fm in v.summary.version.all_files())
+
+        attempts = 3
+        for attempt in range(attempts):
+            v = self.engine.vnode(split.owner, split.vnode_id)
+            before = file_set(v) if v is not None else None
+            try:
+                return self._scan_local_once(split, field_names,
+                                             page_constraints, filter_key,
+                                             n_threads, compressed_spec)
+            except FileNotFoundError:
+                if attempt == attempts - 1 or v is None \
+                        or file_set(v) == before:
+                    raise
+                stages.count_error("scan.compacted_retry")
+
+    def _scan_local_once(self, split: PlacedSplit, field_names,
+                         page_constraints: dict | None = None,
+                         filter_key: str | None = None,
+                         n_threads: int = 1,
+                         compressed_spec=None) -> ScanBatch | None:
         table, trs, doms = split.table, split.time_ranges, split.tag_domains
         v = self.engine.vnode(split.owner, split.vnode_id)
         if v is None:

@@ -400,7 +400,10 @@ REWRITTEN = {
     # what it had; a leader read, local or remote, never fails over to a
     # member that refused it (the refused replica, last in the
     # alternates, answered with a deposed leader's rows), and the scan
-    # lanes build their request and decode a reply through one helper
+    # lanes build their request and decode a reply through one helper;
+    # a local scan that a compaction overtook (a file of its file set
+    # unlinked before its reader opened: FileNotFoundError under the
+    # overload suite's governed flushes) runs again over the new set
     "parallel/coordinator.py": {"Coordinator._upload_hook",
                                 "Coordinator._decode_hook",
                                 "Coordinator.replica_manager",
@@ -410,6 +413,7 @@ REWRITTEN = {
                                 "Coordinator._scan_remote_hedged",
                                 "Coordinator._mark_vnode_broken",
                                 "Coordinator.scan_table",
+                                "Coordinator._scan_local",
                                 "Coordinator.close"},
     # a leader read at a member that does not lead, or cannot confirm
     # through its read index that it does, is answered with a redirect
@@ -536,7 +540,9 @@ ADDED = {
                                 "Coordinator._leader_scan",
                                 "Coordinator._decode_reply",
                                 "Coordinator._local_leader_read",
-                                "Coordinator._scan_payload"},
+                                "Coordinator._scan_payload",
+                                # one scan attempt of _scan_local
+                                "Coordinator._scan_local_once"},
     # the leader reads' counters
     "parallel/health.py": {"count_leader_read", "leader_read_counters",
                            "count_read_index", "read_index_counters"},
