@@ -139,14 +139,21 @@ Phases, in order:
      dcx (SHARD 1 REPLICA 2), whose scan is a leader read: the static
      leader's raft messages delayed, keys acked through the new leader,
      one read with no wait holding every acked key, a redirect booked,
-     the static leader's lag logged; a seeded symmetric partition around
-     one node (all three answer, the cut-off node from its own replicas,
-     each answer against the oracle; the other two take the clients'
-     writes; after the heal the node of tsbs's live leaders engages its
-     lane first with the all-local answers, and the history checker is
-     green on every node); no vnode marked BROKEN in any node's view of
-     meta after each
-     heal and after the restart;
+     the static leader's lag logged; a deposed leader's read (its raft
+     cut both ways, its own read index refusing, the read served by the
+     members that confirm it); a failover read (dcw's leader unreachable
+     for the reader's scans, the reader's own replica behind over raft
+     by FAILOVER_RAFT_DELAY_MS, the read holding every acked key through
+     the follower read index, booked); a seeded symmetric partition
+     around one node (the other two answer every query against the
+     oracle and take the clients' writes; the cut-off node, which can
+     confirm no read of a replicated group, answers against the oracle
+     or refuses with the leader-read error within LEADERLESS_READ_S and
+     REFUSAL_SLACK_S, each query's ms printed; after the heal the node of
+     tsbs's live leaders engages its lane first with the all-local
+     answers, and the history checker is green on every node); no vnode
+     marked BROKEN in any node's view of meta after each heal and after
+     the restart;
      a SIGKILL and restart of one node, read as it comes back with no
      flush or compaction first: its first read decodes its own files on
      the device lane (K2) with no memcache-overlap page, rounds of reads
@@ -2456,6 +2463,13 @@ LEADER_SCAN_DELAY_MS = 200
 # much: a group of two members commits only with its ack, so it holds
 # every acked entry and applies it only when a later message arrives
 STATIC_RAFT_DELAY_MS = 2000
+# the failover-read step delays the leader's raft messages to one
+# follower by this much, so that its replica lags at the read
+FAILOVER_RAFT_DELAY_MS = 1000
+# a query of a replicated group that no member can confirm refuses within
+# the port's leaderless-read span (coordinator.LEADERLESS_READ_S, from
+# raft's election timeout) and this much more for the query around it
+REFUSAL_SLACK_S = 1.0
 # the restarted node's memory cache after catch-up: only the dcw rows
 # written while it was down belong there
 MEMCACHE_LIMIT = 1 << 20
@@ -3117,14 +3131,13 @@ def read_your_writes(cluster, clients) -> dict:
         keys = clients.read(t_node)
         read_ms = (time.perf_counter() - t) * 1e3
         hedged = {o: n - hedged[o] for o, n in hedges().items()}
-        # S's own replica, read by S with its scans kept local: the
-        # acked keys it lacks (not a client read: the history would
-        # take it for a read that went back in time)
-        scans_local(s_node, True)
-        try:
-            s_keys = table_keys(s_node)
-        finally:
-            scans_local(s_node, False)
+        # S's own replica, read with the scan RPC without a flag (a read
+        # through S's SQL would confirm, and wait for S's apply): the
+        # acked keys it lacks (not a client read: the history would take
+        # it for a read that went back in time)
+        (s_vid,) = [v["id"] for v in rs["vnodes"]
+                    if v["node_id"] == s_node.node_id]
+        s_keys = replica_keys(s_node, owner, s_vid)
     finally:
         for n in (l_node, t_node):
             rpc_call(f"127.0.0.1:{n.rpc_port}", "_faults",
@@ -3267,12 +3280,8 @@ def outsider_reads(cluster) -> dict:
         keys = table_keys(o_node, "dcx", "cx")
         read_ms = (time.perf_counter() - t) * 1e3
         after = leader_read_counts(o_node)
-        # S's own replica, read by S with its scans kept local
-        scans_local(s_node, True)
-        try:
-            s_keys = table_keys(s_node, "dcx", "cx")
-        finally:
-            scans_local(s_node, False)
+        # S's own replica, read with the scan RPC without a flag
+        s_keys = replica_keys(s_node, owner, members[s_node.node_id], "cx")
     finally:
         rpc_call(f"127.0.0.1:{l_node.rpc_port}", "_faults",
                  {"spec": f"seed={NEMESIS_SEED}"}, timeout=5.0)
@@ -3319,7 +3328,9 @@ def outsider_reads(cluster) -> dict:
 
 def read_index_counts(node) -> dict:
     """The node's read-index counters (/debug/health): the reads it served
-    as a replicated group's leader, each confirmed or refused."""
+    as a replicated group's leader, each confirmed or refused, and those
+    its members confirmed or refused as followers (the follower read
+    index, and its apply wait)."""
     return json.loads(node.http("GET", "/debug/health"))["counters"].get(
         "read_index", {})
 
@@ -3452,6 +3463,98 @@ def deposed_leader_reads(cluster, clients) -> dict:
         f"its own replica lacked {lacks} acked keys; healed, caught up "
         f"in {caught_s:.2f}s, no vnode BROKEN")
     print(json.dumps({"deposed_leader_reads": res}), flush=True)
+    return res
+
+
+def failover_reads(cluster, clients) -> dict:
+    """Step 7's failover read: dcw (SHARD 1 REPLICA 3) is led on node L,
+    and L's raft messages to the follower F are delayed by
+    FAILOVER_RAFT_DELAY_MS, so F's replica lags. Keys are acked through
+    L, then F's scan RPCs to L's node fail, and one read goes through
+    F's HTTP with no wait: its plan names L, L does not answer, and the
+    read fails over to the members that confirm it, F's own member first
+    (a local replica ranks first). F serves only after its follower read
+    index (it asks L over raft, then waits for its apply). The read must
+    hold every acked key and no key that was never written; F's
+    follower confirmations (or refusals) and its apply wait are booked
+    and printed, with the acked keys F's own replica lacked just before
+    the read (what an unchecked failover read would have answered). →
+    the step's JSON."""
+    from cnosdb_tpu_torch.parallel.net import rpc_call
+
+    owner = "cnosdb.dcw"
+    (rs,) = replica_sets(cluster.nodes[0], (owner,))
+    gid = str(rs["id"])
+    by_id = {n.node_id: n for n in cluster.nodes}
+    wait_leaders(cluster, {owner: 1})
+    l_id, _l_vid = live_leaders(cluster, owner)[gid]
+    l_node = by_id[l_id]
+    f_node, f_vid = next((by_id[v["node_id"]], v["id"]) for v in rs["vnodes"]
+                         if v["node_id"] != l_id)
+    wait_caught_up(f_node, (owner,), (l_node,))
+    specs = {l_node: f"seed={NEMESIS_SEED};rpc.send:delay("
+                     f"{FAILOVER_RAFT_DELAY_MS}):if=127.0.0.1:"
+                     f"{f_node.rpc_port} raft_msg"}
+    t0 = time.perf_counter()
+    try:
+        rpc_call(f"127.0.0.1:{l_node.rpc_port}", "_faults",
+                 {"spec": specs[l_node]}, timeout=5.0)
+        before = set(clients.acked)
+        clients.write(l_node, 10)
+        new = clients.acked - before
+        if not new:
+            raise AssertionError(f"no key acked through node {l_id}")
+        specs[f_node] = (f"seed={NEMESIS_SEED};rpc.send:fail:if=127.0.0.1:"
+                         f"{l_node.rpc_port} scan_vnode")
+        rpc_call(f"127.0.0.1:{f_node.rpc_port}", "_faults",
+                 {"spec": specs[f_node]}, timeout=5.0)
+        (f_applied,) = [a for *_r, a in raft_state(f_node,
+                                                   (owner,)).values()]
+        (l_applied,) = [a for *_r, a in raft_state(l_node,
+                                                   (owner,)).values()]
+        f_lacks = len(new - replica_keys(f_node, owner, f_vid))
+        ri0, lr0 = read_index_counts(f_node), leader_read_counts(f_node)
+        t = time.perf_counter()
+        keys = clients.read(f_node)
+        read_ms = (time.perf_counter() - t) * 1e3
+        ri1, lr1 = read_index_counts(f_node), leader_read_counts(f_node)
+    finally:
+        for n in specs:
+            rpc_call(f"127.0.0.1:{n.rpc_port}", "_faults",
+                     {"spec": f"seed={NEMESIS_SEED}"}, timeout=5.0)
+    step_s = time.perf_counter() - t0
+    confirms = {k: ri1.get(k, 0) - ri0.get(k, 0)
+                for k in ("follower_confirmed", "follower_refused",
+                          "follower_apply_us", "confirmed", "not_leader")}
+    reads = {k: lr1.get(k, 0) - lr0.get(k, 0)
+             for k in ("read", "redirect", "no_leader")}
+    missing = clients.acked - keys
+    written = {f"w{i}" for i in range(clients.n)}
+    where = (f"node {f_node.node_id}'s failover read of {owner} (leader "
+             f"node {l_id} unreachable for its scans; its own replica "
+             f"{FAILOVER_RAFT_DELAY_MS} ms behind over raft, applied "
+             f"{f_applied} against the leader's {l_applied})")
+    if missing or not keys <= written:
+        raise AssertionError(
+            f"{where}: misses {len(missing)} acked keys "
+            f"{sorted(missing)[:5]} and holds {sorted(keys - written)} "
+            f"never written (read index {confirms}, leader reads {reads})")
+    if not confirms["follower_confirmed"] + confirms["follower_refused"]:
+        raise AssertionError(f"{where}: no follower read index was booked "
+                             f"on the node: {confirms}")
+    res = {"leader_node": l_id, "reader_node": f_node.node_id,
+           "raft_delay_ms": FAILOVER_RAFT_DELAY_MS,
+           "acked_keys": len(clients.acked), "new_keys": len(new),
+           "reader_applied": f_applied, "leader_applied": l_applied,
+           "reader_replica_lacked": f_lacks, "read_ms": read_ms,
+           "read_index": confirms, "leader_reads": reads, "step_s": step_s}
+    log(f"# failover read: {where}; {len(new)} keys acked through node "
+        f"{l_id}, its own replica lacked {f_lacks} of them at the read; "
+        f"its one read with no wait ({read_ms:.1f} ms) holds all "
+        f"{len(clients.acked)} acked keys and none never written; its "
+        f"read index {confirms}, its leader reads {reads}; step "
+        f"{step_s:.2f}s")
+    print(json.dumps({"failover_reads": res}), flush=True)
     return res
 
 
@@ -3736,18 +3839,25 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
         out["outsider_reads"] = outsider_reads(cluster)
         # read-your-writes through a leader cut off from raft
         out["deposed_leader_reads"] = deposed_leader_reads(cluster, clients)
+        # a failover read: the leader unreachable for the reader's scans,
+        # its own replica lagging, served only once it confirms
+        out["failover_reads"] = failover_reads(cluster, clients)
 
-        # partition: a symmetric partition around one node. Every node
-        # answers, the cut-off one from its own replicas, and the other
-        # two take the clients' writes; after the heal no replica stays
-        # shunned (no mark in any node's view of meta), so the node
-        # holding tsbs's live raft leaders reads all-local, its lane
-        # engaging on the first pass. A group the cut-off node leads in
-        # its own view is the exception: its read index reaches no peer,
-        # no other member answers, and its replica is never read
-        # unconfirmed, so that query fails within its leader-read
-        # deadline with the leader-read error and a read-index refusal
-        # on the node (booked `victim_refused`)
+        # partition: a symmetric partition around one node. The other two
+        # answer every query (a group the cut-off node led elects a new
+        # leader first) and take the clients' writes. The cut-off node
+        # can confirm no read of a replicated group: its read index, as a
+        # leader or a follower, reaches no peer, and no other member
+        # answers it, so each of its queries either holds every acked row
+        # or fails with the leader-read error within LEADERLESS_READ_S
+        # and a second, a refusal booked on the node (`victim_refused`);
+        # its replicas are never read unconfirmed. After the heal no
+        # replica stays shunned (no mark in any node's view of meta), so
+        # the node holding tsbs's live raft leaders reads all-local, its
+        # lane engaging on the first pass
+        from cnosdb_tpu_torch.parallel.coordinator import LEADERLESS_READ_S
+
+        refusal_limit_s = LEADERLESS_READ_S + REFUSAL_SLACK_S
         ev = nemesis.generate_plan(NEMESIS_SEED, n_nodes=3, steps=1,
                                    kinds=("partition",))[0]
         victim = cluster.nodes[ev.node]
@@ -3760,26 +3870,28 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
                 rpc_call(f"127.0.0.1:{n.rpc_port}", "_faults",
                          {"spec": vspec if n is victim else ospec},
                          timeout=5.0)
-            # the survivors, then the victim on its own replicas (its
-            # scan RPCs fail: a failed reach to each peer's replicas)
+            # the survivors, then the victim (its scan and raft RPCs
+            # fail: a failed reach to each peer)
             part_ms, refused = {}, {}
             for n in survivors + [victim]:
                 for name, q in CLUSTER_SQL.items():
                     t1 = time.perf_counter()
-                    ri0 = read_index_counts(n).get("not_leader", 0)
+                    ri0 = read_index_counts(n)
                     try:
                         text = n.sql(q)
                     except AssertionError as ex:
-                        led = [k for k, m in json.loads(n.http(
-                            "GET", "/debug/health"))["raft_members"].items()
-                            if k.startswith("cnosdb.tsbs/")
-                            and m["role"] == "leader"]
-                        if n is not victim or not led or "no raft leader " \
-                                "of the replica set" not in str(ex) or \
-                                read_index_counts(n).get(
-                                    "not_leader", 0) <= ri0:
+                        ms = (time.perf_counter() - t1) * 1e3
+                        ri1 = read_index_counts(n)
+                        booked = {k: ri1.get(k, 0) - ri0.get(k, 0)
+                                  for k in ("not_leader",
+                                            "follower_refused")}
+                        if n is not victim or "no raft leader of the " \
+                                "replica set" not in str(ex) or \
+                                not sum(booked.values()) or \
+                                ms > refusal_limit_s * 1e3:
                             raise
-                        refused[name] = {"leads": led,
+                        refused[name] = {"ms": round(ms, 1),
+                                         "refusals": booked,
                                          "error": str(ex)[-200:]}
                     else:
                         check_cluster_answer(name, text, data)
@@ -3812,18 +3924,22 @@ def cluster_phase(seed: int, rows: int, placement: str | None = None) -> dict:
             clients.read(n)
         n_ops = check_history(cluster, clients, f"partition of node "
                               f"{victim.node_id} healed")
+        victim_ms = {name: ms[-1] for name, ms in part_ms.items()}
         out["partition"] = {"node": victim.node_id, "cut_s": cut_s,
-                            "query_ms": part_ms, "victim_failed": reach,
+                            "query_ms": part_ms, "victim_ms": victim_ms,
+                            "victim_failed": reach,
                             "victim_refused": refused,
                             "leaders_node": leader.node_id,
                             "stepdowns": moved}
         log(f"# partition (nemesis seed={NEMESIS_SEED}, "
             f"{ev.kind}@n{ev.node}): node {victim.node_id} cut off from "
             f"its peers both ways for {cut_s:.2f}s; nodes "
-            f"{[n.node_id for n in survivors]}, then node {victim.node_id} "
-            f"on its own replicas, answered every query, each against the "
-            f"oracle, but the ones refused at a group the victim led in "
-            f"its own view ({refused or 'none'}) (ms by node {part_ms}; "
+            f"{[n.node_id for n in survivors]} answered every query, each "
+            f"against the oracle; node {victim.node_id} answered "
+            f"{sorted(set(CLUSTER_SQL) - set(refused))} against the oracle "
+            f"and refused {sorted(refused)} with the leader-read error, "
+            f"each within {refusal_limit_s:.1f}s (victim ms {victim_ms}; "
+            f"refusals {refused or 'none'}) (ms by node {part_ms}; "
             f"the victim's RPCs failed in a row, by peer: {reach}); 5 keys "
             f"written "
             f"through node {survivors[0].node_id} "

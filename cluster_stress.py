@@ -15,8 +15,9 @@ reads end, the run reads the vnodes marked BROKEN in every node's view of
 meta from the `cluster_schema.vnodes` system table, which every tree
 serves. One JSON line a run: its tree, whether the phase passed, the
 failure's first line, the phase's seconds, the restarted node's crash to
-first answer, the records of the partition, read-your-writes, outsider
-and deposed-leader steps, the baseline's query times and the read-index
+first answer, the records of the partition, read-your-writes, outsider,
+deposed-leader and failover-read steps, the baseline's query times and
+the read-index
 and leader-read counters where the tree has them, and the marks read at
 each point (also each
 time a node's local-scan fault is cleared, labelled "restart_read");
@@ -91,8 +92,8 @@ def run_one(tree: str, rows: int, placement: str | None) -> dict:
         rec["crash_to_first_answer_s"] = out.get("crash_to_first_answer_s")
         # the steps' records and the read timings where the tree has them
         for key in ("partition", "read_your_writes", "outsider_reads",
-                    "deposed_leader_reads", "query_ms", "read_index",
-                    "leader_read"):
+                    "deposed_leader_reads", "failover_reads", "query_ms",
+                    "read_index", "leader_read"):
             rec[key] = out.get(key)
     except Exception as e:   # the record says why; the caller goes on
         lines = str(e).strip().splitlines()

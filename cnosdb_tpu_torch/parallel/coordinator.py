@@ -37,6 +37,7 @@ from ..storage.engine import TsKv
 from ..storage.scan import ScanBatch, scan_vnode
 from . import health
 from .meta import MetaStore
+from .raft import ELECTION_TIMEOUT
 from ..utils import lockwatch
 
 log = logging.getLogger(__name__)
@@ -59,6 +60,16 @@ LEADER_READ_TIMEOUT_S = 10.0
 # raft round, and the apply of what it committed), capped by the
 # request's deadline
 READ_INDEX_TIMEOUT_S = 5.0
+# A read of a replicated set refuses once, over this span, no member
+# confirmed it and no leader a member named answered: every member was
+# unreachable, or refused without naming a leader it could reach. A
+# group that lost its leader elects a new one about one election timeout
+# later (a prevote and a vote round, each settled as soon as a majority
+# answers), and its members then name it; five of the longest spans
+# leave room for a split vote and a loaded host, and a read of a group
+# that cannot elect (a node cut off from its peers) refuses in well
+# under 2 s instead of waiting out LEADER_READ_TIMEOUT_S
+LEADERLESS_READ_S = 5 * ELECTION_TIMEOUT[1]
 
 
 @dataclass
@@ -86,6 +97,10 @@ class PlacedSplit:
     # follows its redirects, and is served once the leader confirms it
     # through its read index
     leader_read: bool = False
+    # a leader read planned at a member that need not lead (the stand-in
+    # of a BROKEN leader, a failover): it serves once its read index
+    # confirms, the follower read index where it follows
+    confirmed: bool = False
 
 
 class Coordinator:
@@ -744,7 +759,10 @@ class Coordinator:
                                     alternates=running + broken)
                 split.broken_ids = {a.id for a in rs.vnodes
                                     if a.status == VnodeStatus.BROKEN}
-                split.leader_read = replicated and vnode_id == candidate
+                # a stand-in for a BROKEN leader serves it as a follower,
+                # through the follower read index
+                split.leader_read = replicated
+                split.confirmed = replicated and vnode_id != candidate
                 splits.append(split)
         return splits
 
@@ -780,17 +798,20 @@ class Coordinator:
             return None
         return vid
 
-    def leader_elsewhere(self, owner: str, vnode_id: int) -> dict | None:
-        """The member check of a leader read of `vnode_id` on this node,
-        for the scan RPC's handler and this node's own leader reads
-        (_leader_scan) alike → None where the vnode's raft member
-        confirms through its read index that it leads and has applied
-        what the group committed: the read is served here. Else the
-        not-leader reply, its hint the leader the member follows or a
-        newer one it heard of (None while the group elects, or where the
-        member leads but cannot confirm it). None also where the set has
-        one replica or the vnode no member here: the read is served as
-        one without the flag."""
+    def confirm_read(self, owner: str, vnode_id: int,
+                     follower: bool = False) -> dict | None:
+        """The member check of a read of `vnode_id` on this node, for the
+        scan RPC's handler, this node's own reads (_leader_scan), its tag
+        reads and its view refreshes alike → None where the vnode's raft
+        member confirms the read: as the leader, through its read index,
+        or, with `follower`, as a follower too, through the follower read
+        index (it has applied what the group committed before the read
+        arrived): the read is served here. Else the not-leader reply, its
+        hint the leader the member follows or a newer one it heard of
+        (None while the group elects, or where the member leads but
+        cannot confirm it). None also where the set has one replica or
+        the vnode no member here: the read is served as one without a
+        flag."""
         from .raft import NotLeader
 
         hit = self.meta.find_vnode(vnode_id)
@@ -801,7 +822,8 @@ class Coordinator:
         if member is None:
             return None
         try:
-            member.read_index(deadline_mod.cap_current(READ_INDEX_TIMEOUT_S))
+            member.read_index(deadline_mod.cap_current(READ_INDEX_TIMEOUT_S),
+                              follow=follower)
         except NotLeader as e:
             hint = e.leader_id
             return {"ok": False, "not_leader": True,
@@ -809,90 +831,94 @@ class Coordinator:
         return None
 
     def _leader_scan(self, split: PlacedSplit, payload: dict, scan_here,
-                     hedge: bool = False,
-                     refused: set | None = None) -> ScanBatch | None:
-        """A leader read of `split` (PlacedSplit.leader_read), at the
-        planned vnode first. Each member asked serves it only once its
-        read index confirms that it leads (leader_elsewhere): a member on
-        this node is checked here and read by `scan_here(vnode_id)`, a
-        remote one through the scan RPC with the `leader_read` flag. A
-        member that does not lead answers not-leader with the leader it
-        follows, and the read goes there; with no leader named (an
-        election on, a leader that could not confirm it, or a hint
-        already tried) it asks the members not asked yet, then backs off
-        and asks again, until the request's deadline or the scan RPC's
-        timeout runs out (CoordinatorError). → the batch of the member
-        that led. Each member that answered not-leader joins `refused`,
-        which the caller's failover never reads. RpcUnavailable /
-        RpcError from the planned vnode or a named leader propagate: the
-        caller fails over to the other alternates, as for a live leader
-        that does not answer; a member asked only because none was named
-        counts as naming none."""
-        from ..models.meta_data import VnodeStatus
-        from .net import RpcError
+                     targets: list | None = None,
+                     hedge: bool = False) -> ScanBatch | None:
+        """A read of a replicated set (PlacedSplit.leader_read) → the batch
+        of the member that confirmed it: no member serves it before it
+        confirms (confirm_read). A member on this node is checked here and
+        read by `scan_here(vnode_id)`, a remote one through the scan RPC
+        with a flag. `targets` are the members to ask, (vnode, node) in
+        failover order, the planned one first (by default the split's
+        vnode, then its alternates). The planned member is asked as the
+        leader (`leader_read`): one that does not lead answers not-leader
+        with the leader it follows, and the read goes there; the stand-in
+        of a BROKEN leader (PlacedSplit.confirmed) is asked as a confirmed
+        read (`confirmed`), which a follower serves too, once its follower
+        read index confirms it. Where no leader is named (an election, a
+        leader that could not confirm it leads), the one named was asked
+        already or is BROKEN, or a member does not answer, the read asks
+        the members not asked yet, in order, as confirmed reads, then
+        backs off and asks them again. It refuses (CoordinatorError, the
+        leader-read error) once, over LEADERLESS_READ_S, no member
+        confirmed it and no leader a member named answered, and in any
+        case at the request's deadline or LEADER_READ_TIMEOUT_S, the cap
+        of a read that keeps being redirected."""
+        from .net import RpcError, RpcUnavailable
 
-        deadline = time.monotonic() + deadline_mod.cap_current(
-            LEADER_READ_TIMEOUT_S)
+        t0 = time.monotonic()
+        deadline = t0 + deadline_mod.cap_current(LEADER_READ_TIMEOUT_S)
+        quiet_since = t0        # a named leader's last answer
         bo = Backoff(initial=0.05, cap=1.0)
+        targets = targets or ([(split.vnode_id, split.node_id)]
+                              + list(split.alternates))
+        members = dict(targets)
         hit = self.meta.find_vnode(split.vnode_id)
         rs = hit[2] if hit is not None else None
-        vnode_id, node_id = split.vnode_id, split.node_id
+        vnode_id, node_id = targets[0]
+        confirmed = split.confirmed
+        named = not confirmed   # asking a member named as the leader
         asked = set()
-        refused = refused if refused is not None else set()
-        polled = False        # asking members that named no leader
+        rejected = None         # a member's app-level refusal of the scan
         health.count_leader_read("read")
         while True:
             deadline_mod.check_current()
             asked.add(vnode_id)
             here = node_id == self.node_id or not self.distributed
-            silent = False
+            answered = True
             if here:
-                r = self.leader_elsewhere(split.owner, vnode_id)
+                r = self.confirm_read(split.owner, vnode_id,
+                                      follower=confirmed)
             else:
+                flag = "confirmed" if confirmed else "leader_read"
                 try:
                     r = self._rpc(node_id, "scan_vnode",
                                   {**payload, "vnode_id": vnode_id,
-                                   "leader_read": True}, hedge=hedge)
-                except RpcError:
-                    if not polled:
-                        raise
-                    # a member polled for the leader that does not answer
-                    # names none: the read goes on asking the others
-                    r, silent = {"not_leader": True, "hint": None}, True
+                                   flag: True}, hedge=hedge)
+                except RpcError as e:
+                    # a member that does not answer names no leader: the
+                    # read asks the others
+                    if not isinstance(e, RpcUnavailable):
+                        rejected = e
+                    r, answered = {"not_leader": True, "hint": None}, False
             if r is None or not r.get("not_leader"):
-                if rs is not None:
+                if rs is not None and not confirmed:
                     self._leaders_seen[(split.owner, rs.id)] = vnode_id
                 return scan_here(vnode_id) if here else self._decode_reply(r)
-            if not silent:
-                refused.add(vnode_id)
+            if answered and named:
+                quiet_since = time.monotonic()
             hint = r.get("hint")
-            v = rs.vnode(hint) if rs is not None and hint is not None \
-                else None
-            if v is not None and v.status == VnodeStatus.COPYING:
-                v = None
-            if v is not None and v.id not in asked:
+            if hint in members and hint not in asked \
+                    and hint not in split.broken_ids:
                 health.count_leader_read("redirect")
-                polled = False
-            else:
-                # no leader named (an election on, or a leader that could
-                # not confirm it leads), or stale hints that lead back:
-                # ask a member not asked yet, else wait for the group to
-                # settle and ask again
-                health.count_leader_read("no_leader")
-                v = next((x for x in rs.vnodes if x.id not in asked
-                          and x.status == VnodeStatus.RUNNING), None) \
-                    if rs is not None else None
-                polled = True
-                if v is None:
-                    if not bo.sleep(deadline):
-                        raise CoordinatorError(
-                            f"no raft leader of the replica set of vnode "
-                            f"{split.vnode_id} of {split.owner} answered a "
-                            f"leader read (last asked vnode {vnode_id}, "
-                            f"hint {hint})")
-                    asked.clear()
-            if v is not None:
-                vnode_id, node_id = v.id, v.node_id
+                vnode_id, node_id = hint, members[hint]
+                confirmed, named = False, True
+                continue
+            health.count_leader_read("no_leader")
+            confirmed, named = True, False
+            nxt = next((t for t in targets if t[0] not in asked), None)
+            if nxt is None:
+                if not bo.sleep(min(deadline,
+                                    quiet_since + LEADERLESS_READ_S)):
+                    why = (f"; a member rejected the scan: {rejected}"
+                           if rejected is not None else "")
+                    raise CoordinatorError(
+                        f"no raft leader of the replica set of vnode "
+                        f"{split.vnode_id} of {split.owner} confirmed a "
+                        f"read in {time.monotonic() - t0:.2f}s (last asked "
+                        f"vnode {vnode_id}, hint {hint}){why}")
+                asked.clear()
+                nxt = targets[0]
+            vnode_id, node_id = nxt
 
     def _decode_reply(self, r: dict) -> ScanBatch | None:
         """A scan RPC's reply → its batch, charged to the request (the
@@ -910,11 +936,7 @@ class Coordinator:
                            fingerprint, scan_here) -> ScanBatch | None:
         """A leader read planned at a member on this node: _leader_scan,
         which reads a member here through `scan_here(split)` once it
-        confirms. Where a leader it was sent to does not answer, the read
-        fails over to the set's other replicas, as a remote leader read
-        does, and never to a member that refused it."""
-        from .net import RpcError
-
+        confirms, and asks the set's other members where it cannot."""
         def at(vnode_id):
             if vnode_id == split.vnode_id:
                 return scan_here(split)
@@ -923,22 +945,10 @@ class Coordinator:
                 split.tag_domains, node_id=self.node_id,
                 tier=self._split_tier(split.owner, vnode_id, self.node_id),
                 alternates=[a for a in split.alternates if a[0] != vnode_id],
-                broken_ids=set(split.broken_ids)))
+                broken_ids=set(split.broken_ids), leader_read=True))
 
-        refused: set = set()
-        try:
-            return self._leader_scan(split, self._scan_payload(
-                split, split.vnode_id, field_names, fingerprint), at,
-                refused=refused)
-        except RpcError:
-            alts = [a for a in split.alternates if a[0] not in refused]
-            if not alts:
-                raise
-            return self._scan_remote(PlacedSplit(
-                split.owner, alts[0][0], split.table, split.time_ranges,
-                split.tag_domains, node_id=alts[0][1], alternates=alts[1:],
-                broken_ids=set(split.broken_ids)), field_names,
-                fingerprint=fingerprint)
+        return self._leader_scan(split, self._scan_payload(
+            split, split.vnode_id, field_names, fingerprint), at)
 
     def _scan_payload(self, split: PlacedSplit, vnode_id: int, field_names,
                       fingerprint) -> dict:
@@ -1082,10 +1092,14 @@ class Coordinator:
                 alts = list(split.alternates)
                 if not alts:
                     raise
+                # a replicated set's alternate serves once its read index
+                # confirms it, leader's or follower's
                 fo = PlacedSplit(split.owner, alts[0][0], split.table,
                                  split.time_ranges, split.tag_domains,
                                  node_id=alts[0][1], alternates=alts[1:],
-                                 broken_ids=set(split.broken_ids))
+                                 broken_ids=set(split.broken_ids),
+                                 leader_read=split.leader_read,
+                                 confirmed=split.leader_read)
                 log.warning("scan failover after corruption on vnode %s: %s",
                             split.vnode_id, e)
                 return self._scan_remote(fo, field_names)
@@ -1449,7 +1463,8 @@ class Coordinator:
         scorer only judges responsiveness, never data state). A
         browned-out leader is not rescued at all: a hedge would read a
         follower (see _scan_remote_hedged); only a leader that does not
-        answer fails over."""
+        answer fails over, in this order, to the members that confirm the
+        read through their read index (_leader_scan)."""
         head, rest = targets[:1], targets[1:]
         live = [t for t in rest if t[0] not in split.broken_ids]
         tail = [t for t in rest if t[0] in split.broken_ids]
@@ -1463,21 +1478,24 @@ class Coordinator:
 
     def _scan_remote_solo(self, split: PlacedSplit, targets, field_names,
                           fingerprint: str | None = None) -> ScanBatch | None:
-        """Legacy fixed-order failover loop (CNOSDB_HEDGE=0 A/B path)."""
+        """Legacy fixed-order failover loop (CNOSDB_HEDGE=0 A/B path). A
+        replicated set's read is _leader_scan over the same targets: no
+        member serves it before it confirms."""
         from .net import RpcError, RpcUnavailable
 
         last_unreach = None
         last_reject = None
-        refused: set = set()     # members that refused the leader read
 
         def scan_here(vnode_id):
             return self._scan_local(PlacedSplit(
                 split.owner, vnode_id, split.table, split.time_ranges,
                 split.tag_domains), field_names)
 
-        for i, (vnode_id, node_id) in enumerate(targets):
-            if vnode_id in refused:
-                continue
+        if split.leader_read:
+            return self._leader_scan(split, self._scan_payload(
+                split, split.vnode_id, field_names, fingerprint), scan_here,
+                targets)
+        for vnode_id, node_id in targets:
             if node_id == self.node_id:
                 if self.engine.vnode(split.owner, vnode_id) is None:
                     # placement says local but the data is absent (dropped /
@@ -1487,11 +1505,6 @@ class Coordinator:
             payload = self._scan_payload(split, vnode_id, field_names,
                                          fingerprint)
             try:
-                if i == 0 and split.leader_read:
-                    # the failover below reads the alternates as a member
-                    # node's read of a silent live leader does
-                    return self._leader_scan(split, payload, scan_here,
-                                             refused=refused)
                 r = self._rpc(node_id, "scan_vnode", payload)
             except RpcUnavailable as e:
                 # this node could not reach the replica: _rpc's breaker
@@ -1553,9 +1566,11 @@ class Coordinator:
         other replica is a follower that may not have applied the tail
         of the log, and its answer, first in, would miss rows the leader
         acknowledged; such a read waits for the leader, which serves it
-        once its read index confirms it, and fails over only when no
-        member answers at all (booked as suppressed, reason
-        leader_read).
+        once its read index confirms it (booked as suppressed, reason
+        leader_read). It is one attempt, _leader_scan over the targets:
+        where the leader does not answer, it asks the other members
+        itself, each serving only once its read index confirms the read,
+        leader's or follower's.
         Every exit of this lane books into cnosdb_hedge_total
         (hedge-accounting lint rule)."""
         from .net import RpcError, RpcThrottled, RpcUnavailable
@@ -1570,7 +1585,6 @@ class Coordinator:
         leader_read = split.leader_read
         last_unreach = last_reject = None
         throttled_idxs: list[int] = []   # slow-start-refused targets
-        refused: set = set()     # members that refused the leader read
 
         def scan_here(vnode_id):
             return self._scan_local(PlacedSplit(
@@ -1595,9 +1609,12 @@ class Coordinator:
             def attempt():
                 try:
                     with deadline_mod.scope(child):
-                        if vnode_id in refused:
-                            # a member that refused the leader read
-                            resq.put((idx, "skip", None))
+                        if leader_read:
+                            resq.put((idx, "batch", self._leader_scan(
+                                split, self._scan_payload(
+                                    split, vnode_id, field_names,
+                                    fingerprint), scan_here, targets,
+                                hedge=bypass_ramp)))
                             return
                         if node_id == self.node_id:
                             if self.engine.vnode(split.owner,
@@ -1610,11 +1627,6 @@ class Coordinator:
                             return
                         payload = self._scan_payload(split, vnode_id,
                                                      field_names, fingerprint)
-                        if idx == 0 and split.leader_read:
-                            resq.put((idx, "batch", self._leader_scan(
-                                split, payload, scan_here, hedge=bypass_ramp,
-                                refused=refused)))
-                            return
                         r = self._rpc(node_id, "scan_vnode", payload,
                                       hedge=bypass_ramp)
                         resq.put((idx, "remote", r))
@@ -2429,7 +2441,9 @@ class Coordinator:
 
     def tag_values(self, tenant: str, db: str, table: str, tag_key: str) -> list[str]:
         """Index fan-out; an unreachable owner fails the query — a silent
-        skip would return partial values as if complete."""
+        skip would return partial values as if complete — and so does a
+        node whose member of a replicated set cannot confirm the read
+        (_confirm_members)."""
         out = set(self.tag_values_local(f"{tenant}.{db}", table, tag_key))
         from .net import RpcError, RpcUnavailable
 
@@ -2444,9 +2458,40 @@ class Coordinator:
                     f"tag scan failed on node {nid}: {e}") from e
         return sorted(out)
 
+    def _confirm_members(self, owner: str, vnodes) -> None:
+        """Before a read of the local `vnodes`' indexes: each that is a
+        member of a replicated set confirms the read through its read
+        index, leader's or follower's alike (confirm_read; the members in
+        parallel), so that it has applied what its group committed before
+        the read arrived. CoordinatorError, the leader-read error, where
+        one cannot: the node's answer would be the member's past state.
+        A single-replica vnode is read as it is."""
+        from ..utils import executor
+
+        vids = []
+        for v in vnodes:
+            hit = self.meta.find_vnode(v.vnode_id)
+            if hit is not None and len(hit[2].vnodes) > 1:
+                vids.append(v.vnode_id)
+        if not vids:
+            return
+        replies = executor.run_all(
+            "scan", lambda vid: self.confirm_read(owner, vid, follower=True),
+            vids)
+        refused = [(vid, r.get("hint"))
+                   for vid, r in zip(vids, replies) if r is not None]
+        if refused:
+            raise CoordinatorError(
+                f"no raft leader of the replica set of vnode "
+                f"{refused[0][0]} of {owner} confirmed an index read on "
+                f"node {self.node_id} (refused by vnodes, hints: "
+                f"{refused})")
+
     def tag_values_local(self, owner: str, table: str, tag_key: str) -> list[str]:
         out = set()
-        for v in self.engine.local_vnodes(owner):
+        vnodes = self.engine.local_vnodes(owner)
+        self._confirm_members(owner, vnodes)
+        for v in vnodes:
             out.update(v.index.tag_values(table, tag_key))
         return sorted(out)
 
@@ -2475,7 +2520,9 @@ class Coordinator:
     def series_keys_local(self, owner: str, table: str,
                           doms: ColumnDomains) -> list:
         keys = {}
-        for v in self.engine.local_vnodes(owner):
+        vnodes = self.engine.local_vnodes(owner)
+        self._confirm_members(owner, vnodes)
+        for v in vnodes:
             for sid in v.index.get_series_ids_by_domains(table, doms):
                 k = v.index.get_series_key(int(sid))
                 if k is not None:

@@ -107,11 +107,20 @@ class DataNodeService:
         return {"ok": True, "index": idx}
 
     def _scan_vnode(self, p):
-        if p.get("leader_read"):
-            elsewhere = self.coord.leader_elsewhere(p["owner"],
-                                                    p["vnode_id"])
-            if elsewhere is not None:
-                return elsewhere
+        """One local vnode's scan. With `leader_read` it is served only
+        where the vnode's member leads and its read index confirms the
+        read, else answered not-leader with the leader the member follows;
+        with `confirmed` a follower serves it too, once its follower read
+        index confirms it (Coordinator.confirm_read). Every query route
+        of a replicated set sends one of the two flags. Without either the
+        scan reads the replica it names, unchecked: for a single-replica
+        set, and for diagnostics that read one replica on purpose
+        (`replica_keys` in chip_smoke.py)."""
+        if p.get("leader_read") or p.get("confirmed"):
+            refused = self.coord.confirm_read(
+                p["owner"], p["vnode_id"], follower=bool(p.get("confirmed")))
+            if refused is not None:
+                return refused
         if p.get("fp"):
             # serving-plane-tagged scan: lets cluster-wide dashboards
             # attribute remote work to the originating query family

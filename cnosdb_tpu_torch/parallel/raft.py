@@ -21,7 +21,10 @@ Simplifications vs openraft, stated plainly:
   confirms that it still leads with an append round a majority answers,
   and serves once it has applied the commit index it read. There are no
   leases and no clock assumptions: a leader cut off from its peers keeps
-  its role until it hears a higher term, and fails the round;
+  its role until it hears a higher term, and fails the round. A follower
+  serves through the follower read index (the thesis's §6.4 too): it
+  asks its leader for that index over raft and serves once it has
+  applied it;
 - membership changes are single-step (add/remove one voter at a time).
 """
 from __future__ import annotations
@@ -364,10 +367,13 @@ class HttpTransport(Transport):
         try:
             # short timeout: raft treats a missing reply as a dropped
             # message and retries next tick; a long block here would stall
-            # the concurrent broadcast threads' join window
+            # the concurrent broadcast threads' join window. A follower's
+            # read index waits for the leader's round: the read's own
+            # budget, which it sends along
             r = rpc_call(addr, "raft_msg",
                          {"group": group_id, "to": to, "msg": msg},
-                         timeout=2.0)
+                         timeout=2.0 if msg["type"] != "read_index"
+                         else msg["timeout"] + 0.5)
         except RpcUnauthorized as e:
             # permanent misconfiguration (peers disagree on the cluster
             # secret) — swallowing it would look exactly like a network
@@ -388,6 +394,11 @@ class HttpTransport(Transport):
         return r.get("reply")
 
 
+# A follower that hears no append for a span drawn from this range (s)
+# starts an election: a group whose leader is gone elects a new one
+# within about the longest span, a prevote and a vote round later
+ELECTION_TIMEOUT = (0.15, 0.3)
+
 RAFT_BLANK = 5       # WalEntryType.RAFT_BLANK
 RAFT_MEMBERSHIP = 6  # WalEntryType.RAFT_MEMBERSHIP — config-change entries
 
@@ -397,7 +408,7 @@ class RaftNode:
 
     def __init__(self, group_id: str, node_id: int, peers: list[int],
                  log: LogStore, sm: StateMachine, transport: Transport,
-                 election_timeout: tuple[float, float] = (0.15, 0.3),
+                 election_timeout: tuple[float, float] = ELECTION_TIMEOUT,
                  heartbeat_interval: float = 0.05,
                  tick: bool = True, initial_applied: int = 0,
                  on_state=None):
@@ -504,8 +515,11 @@ class RaftNode:
                     role = self.role
                 now = time.monotonic()
                 if role == Role.LEADER:
+                    # a heartbeat waits for no peer's send: one slow peer
+                    # would hold the ticker, and the healthy followers,
+                    # hearing nothing past an election timeout, elect
                     if now - self._last_heartbeat >= self.heartbeat_interval:
-                        self._broadcast_append()
+                        self._broadcast_append(wait=0)
                 elif now >= self._election_deadline:
                     self._start_election()
             except Exception:
@@ -736,19 +750,25 @@ class RaftNode:
                 "entry superseded after leadership change", index=idx)
         return idx
 
-    def read_index(self, timeout: float = 5.0) -> int:
+    def read_index(self, timeout: float = 5.0, follow: bool = True) -> int:
         """The read index of the raft thesis (§6.4; openraft's
         ensure_linearizable) → the log index a linearizable read may serve
         at, applied here before it returns. The leader waits for an entry
         of its own term to commit (a new leader learns the commit index
         only then), reads its commit index, and confirms that it still
         leads: a majority, this member included, answers at its term an
-        append sent after the read arrived (`_confirm`). Raises NotLeader
-        when this member does not lead, or cannot confirm it or apply the
-        index within `timeout`: its hint is the leader it follows, or a
-        newer leader it heard of, else None."""
+        append sent after the read arrived (`_confirm`). A follower
+        (with `follow`) takes the follower read index instead
+        (`_follower_read_index`). Raises NotLeader when this member does
+        not lead and `follow` is off, or cannot confirm the read or apply
+        the index within `timeout`: its hint is the leader it follows, or
+        a newer leader it heard of, else None."""
         from . import health
 
+        with self.lock:
+            leads = self.is_leader()
+        if follow and not leads:
+            return self._follower_read_index(timeout)
         t0 = time.monotonic()
         deadline = t0 + timeout
         waited = False
@@ -790,6 +810,73 @@ class RaftNode:
         if waited:
             health.count_read_index("apply_waits")
         return read_idx
+
+    def _follower_read_index(self, timeout: float) -> int:
+        """The follower read index (raft thesis §6.4) → the leader's read
+        index, applied here before it returns. The member asks the leader
+        it follows, over its own raft transport, for the leader's read
+        index (`_on_read_index`: the leader confirms with its majority
+        round), then waits until it has applied that index: every entry
+        the group committed before the read arrived. Raises NotLeader
+        where the member is a candidate or knows no leader (hint None),
+        where the leader does not answer or the apply does not finish
+        within `timeout` (hint the leader), and where the leader refuses
+        (hint the leader's own hint)."""
+        from . import health
+
+        t0 = time.monotonic()
+        deadline = t0 + timeout
+        t_apply = None
+        try:
+            with self.lock:
+                leader = self.leader_id
+                if self.role != Role.FOLLOWER or not self.alive \
+                        or leader in (None, self.node_id):
+                    raise NotLeader(None)
+                term = self.term
+            try:
+                reply = self.transport.send(self.group_id, leader, {
+                    "type": "read_index", "from": self.node_id,
+                    "term": term, "timeout": timeout})
+            except Exception:
+                reply = None
+            if reply is None:
+                raise NotLeader(leader)
+            idx = reply.get("index")
+            if idx is None:
+                hint = reply.get("hint")
+                raise NotLeader(hint if hint != self.node_id else None)
+            t_apply = time.monotonic()
+            with self._apply_cv:
+                while self.last_applied < idx:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise NotLeader(leader)
+                    self._apply_cv.wait(remaining)
+        except NotLeader:
+            health.count_read_index("follower_refused")
+            raise
+        finally:
+            now = time.monotonic()
+            health.count_read_index("wait_us", int((now - t0) * 1e6))
+            if t_apply is not None:
+                health.count_read_index("follower_apply_us",
+                                        int((now - t_apply) * 1e6))
+        health.count_read_index("follower_confirmed")
+        return idx
+
+    def _on_read_index(self, msg) -> dict:
+        """A follower's read-index request: the leader's read index, run
+        as for a read of its own (a round shared with the reads under
+        way), within the follower's timeout → {"term", "index"}; a member
+        that does not lead, or cannot confirm, answers index None with
+        its hint."""
+        try:
+            idx = self.read_index(float(msg.get("timeout", 5.0)),
+                                  follow=False)
+        except NotLeader as e:
+            return {"term": self.term, "index": None, "hint": e.leader_id}
+        return {"term": self.term, "index": idx}
 
     def _leading(self, term: int | None = None) -> int:
         """→ this member's term; NotLeader unless it leads (at `term`,
@@ -1150,6 +1237,8 @@ class RaftNode:
             return self._on_append_entries(msg)
         if t == "install_snapshot":
             return self._on_install_snapshot(msg)
+        if t == "read_index":
+            return self._on_read_index(msg)
         raise ReplicationError(f"unknown message {t}")
 
     def _on_request_vote(self, msg):

@@ -414,6 +414,16 @@ class MatviewEngine:
         v = self.coord.engine.vnode(vdef.owner, vnode_id)
         if v is None:
             return False
+        # a member of a replicated set first confirms the read through its
+        # read index, leader's or follower's: one that has not applied
+        # every acked row below the watermark would move `hwm` past them,
+        # and they would be missing from the view for good. One that
+        # cannot confirm leaves `hwm` where it was: the next refresh
+        # retries
+        if self.coord.confirm_read(vdef.owner, vnode_id,
+                                   follower=True) is not None:
+            _count("refresh_unconfirmed")
+            return False
         from ..ops.tpu_exec import (TpuQuery, finish_scan_aggregate,
                                     launch_scan_aggregate)
         from ..storage.scan import scan_vnode

@@ -289,8 +289,19 @@ SUBS = {
   confirms that it still leads with an append round a majority answers,
   and serves once it has applied the commit index it read. There are no
   leases and no clock assumptions: a leader cut off from its peers keeps
-  its role until it hears a higher term, and fails the round;
-""")],
+  its role until it hears a higher term, and fails the round. A follower
+  serves through the follower read index (the thesis's §6.4 too): it
+  asks its leader for that index over raft and serves once it has
+  applied it;
+"""),
+        # the election timeout is named: a leaderless read's refusal
+        # bound (Coordinator's LEADERLESS_READ_S) derives from it
+        ("RAFT_BLANK = 5       # WalEntryType.RAFT_BLANK\n",
+         "# A follower that hears no append for a span drawn from this "
+         "range (s)\n# starts an election: a group whose leader is gone "
+         "elects a new one\n# within about the longest span, a prevote "
+         "and a vote round later\nELECTION_TIMEOUT = (0.15, 0.3)\n\n"
+         "RAFT_BLANK = 5       # WalEntryType.RAFT_BLANK\n")],
     # the replica manager's lazy build is guarded (see REWRITTEN); a
     # split's BROKEN replicas are data-suspect, no scan clears them
     "parallel/coordinator.py": [
@@ -306,13 +317,21 @@ SUBS = {
          "member of\n        self._leaders_seen: dict = {}\n"),
         # every read of a replicated set goes to the set's raft leader
         # (Coordinator._leader_scan), which confirms it through its read
-        # index (RaftNode.read_index)
+        # index (RaftNode.read_index); a stand-in for a BROKEN leader, and
+        # a failover, serve once the follower read index confirms
         ("    broken_ids: set = field(default_factory=set)\n",
          "    broken_ids: set = field(default_factory=set)\n"
          "    # a replicated set's read: the scan asks for the group's raft "
          "leader,\n    # follows its redirects, and is served once the "
          "leader confirms it\n    # through its read index\n"
-         "    leader_read: bool = False\n"),
+         "    leader_read: bool = False\n"
+         "    # a leader read planned at a member that need not lead (the "
+         "stand-in\n    # of a BROKEN leader, a failover): it serves once "
+         "its read index\n    # confirms, the follower read index where it "
+         "follows\n    confirmed: bool = False\n"),
+        ("from .meta import MetaStore\nfrom ..utils import lockwatch\n",
+         "from .meta import MetaStore\nfrom .raft import ELECTION_TIMEOUT\n"
+         "from ..utils import lockwatch\n"),
         ('CB_BURN_FRACTION = float(os.environ.get("CNOSDB_CB_BURN_FRACTION",'
          ' "0.5"))\n',
          'CB_BURN_FRACTION = float(os.environ.get("CNOSDB_CB_BURN_FRACTION",'
@@ -323,7 +342,18 @@ SUBS = {
          "LEADER_READ_TIMEOUT_S = 10.0\n"
          "# A leader's budget for confirming a read through its read index "
          "(one\n# raft round, and the apply of what it committed), capped "
-         "by the\n# request's deadline\nREAD_INDEX_TIMEOUT_S = 5.0\n"),
+         "by the\n# request's deadline\nREAD_INDEX_TIMEOUT_S = 5.0\n"
+         "# A read of a replicated set refuses once, over this span, no "
+         "member\n# confirmed it and no leader a member named answered: "
+         "every member was\n# unreachable, or refused without naming a "
+         "leader it could reach. A\n# group that lost its leader elects a "
+         "new one about one election timeout\n# later (a prevote and a "
+         "vote round, each settled as soon as a majority\n# answers), and "
+         "its members then name it; five of the longest spans\n# leave "
+         "room for a split vote and a loaded host, and a read of a group\n"
+         "# that cannot elect (a node cut off from its peers) refuses in "
+         "well\n# under 2 s instead of waiting out LEADER_READ_TIMEOUT_S\n"
+         "LEADERLESS_READ_S = 5 * ELECTION_TIMEOUT[1]\n"),
         ("    # replicas currently marked BROKEN (self-heal on a successful "
          "scan)\n",
          "    # replicas meta marks BROKEN: data-suspect until the repair "
@@ -403,7 +433,15 @@ REWRITTEN = {
     # lanes build their request and decode a reply through one helper;
     # a local scan that a compaction overtook (a file of its file set
     # unlinked before its reader opened: FileNotFoundError under the
-    # overload suite's governed flushes) runs again over the new set
+    # overload suite's governed flushes) runs again over the new set;
+    # every route of a replicated set's read is confirmed: a leader that
+    # did not answer failed over to the other replicas with plain scans
+    # (the reader's own first, which lacked rows the leader had acked),
+    # a stand-in for a BROKEN leader and the failover after a checksum
+    # mismatch read a replica unchecked, and a node's tag reads answered
+    # from members that had not applied what their group committed; the
+    # hedge and solo lanes now hand a replicated set's read to
+    # _leader_scan whole
     "parallel/coordinator.py": {"Coordinator._upload_hook",
                                 "Coordinator._decode_hook",
                                 "Coordinator.replica_manager",
@@ -414,11 +452,19 @@ REWRITTEN = {
                                 "Coordinator._mark_vnode_broken",
                                 "Coordinator.scan_table",
                                 "Coordinator._scan_local",
-                                "Coordinator.close"},
+                                "Coordinator.close",
+                                "Coordinator.tag_values",
+                                "Coordinator.tag_values_local",
+                                "Coordinator.series_keys_local"},
     # a leader read at a member that does not lead, or cannot confirm
     # through its read index that it does, is answered with a redirect
-    # to the leader it follows, not scanned
+    # to the leader it follows, not scanned; a confirmed read is served
+    # by a follower too, once its follower read index confirms it
     "parallel/node_service.py": {"DataNodeService._scan_vnode"},
+    # a view refresh confirms the member first: a member that had not
+    # applied every acked row below the watermark moved the watermark past
+    # them, and the view lacked them for good
+    "sql/matview.py": {"MatviewEngine._refresh_vnode"},
     # the wire query id names its tracker: ids from 1 in every process
     # collided in peers' cancel tombstones (a restarted node's queries
     # were refused as cancelled)
@@ -459,8 +505,13 @@ REWRITTEN = {
     # numbered, and each peer has one send in flight, carrying the newest
     # broadcast (a broadcast started a thread per peer, so a slow or
     # snapshot-bound peer collected one send, a whole-vnode snapshot
-    # among them, per broadcast)
+    # among them, per broadcast); a heartbeat waits for no peer's send
+    # (a peer 400 ms away held the ticker, the other follower heard
+    # nothing past its election timeout and took the lead); a follower
+    # answers a read-index request, and the HTTP transport gives that
+    # request the read's own budget
     "parallel/raft.py": {"RaftNode.__init__", "RaftNode._tick_loop",
+                         "RaftNode.handle_message", "HttpTransport.send",
                          "RaftNode._start_election", "RaftNode._prevote",
                          "RaftNode._on_request_prevote",
                          "RaftNode._step_down", "RaftNode._send_append",
@@ -528,15 +579,21 @@ ADDED = {
                          # the read index, its leadership check and
                          # round, and a peer's one sender
                          "RaftNode.read_index", "RaftNode._leading",
-                         "RaftNode._confirm", "RaftNode._sender"},
+                         "RaftNode._confirm", "RaftNode._sender",
+                         # the follower read index: a follower's request,
+                         # and the leader's answer
+                         "RaftNode._follower_read_index",
+                         "RaftNode._on_read_index"},
     "parallel/replica.py": {"_resume_index", "open_local_members"},
     # the live raft leader as the node sees it, for the planner; the
     # leader reads, remote and local, one member check for both (the
-    # scan RPC's handler asks it too), and the scan lanes' request and
-    # reply helpers
+    # scan RPC's handler, the tag reads and the view refreshes ask it
+    # too; a node's tag read confirms its members through it), and the
+    # scan lanes' request and reply helpers
     "parallel/coordinator.py": {"Coordinator._live_leader_vnode",
                                 "Coordinator._leader_seen",
-                                "Coordinator.leader_elsewhere",
+                                "Coordinator.confirm_read",
+                                "Coordinator._confirm_members",
                                 "Coordinator._leader_scan",
                                 "Coordinator._decode_reply",
                                 "Coordinator._local_leader_read",

@@ -196,8 +196,10 @@ def test_a_deposed_leader_cut_off_from_raft_does_not_confirm(group):
 
 
 def test_a_deposed_leader_that_hears_the_new_term_names_its_leader(group):
-    """Once 1 hears 2's append at the higher term, it follows 2, and its
-    read index refuses with 2 as the hint."""
+    """Once 1 hears 2's append at the higher term, it follows 2: a read
+    that asks it as the leader (`follow=False`, the scan RPC's
+    `leader_read`) refuses with 2 as the hint, and so does a follower's
+    read-index request sent to it."""
     g = group
     n1 = g.elect(1)
     n1._broadcast_append()
@@ -208,8 +210,11 @@ def test_a_deposed_leader_that_hears_the_new_term_names_its_leader(group):
     n2._broadcast_append()
     assert not n1.is_leader() and n1.leader_id == 2
     with pytest.raises(NotLeader) as e:
-        n1.read_index(1.0)
+        n1.read_index(1.0, follow=False)
     assert e.value.leader_id == 2
+    reply = n1.handle_message({"type": "read_index", "from": 3,
+                               "term": n1.term, "timeout": 1.0})
+    assert reply["index"] is None and reply["hint"] == 2
 
 
 def test_concurrent_reads_share_a_round(group):
@@ -299,9 +304,16 @@ def test_a_peer_that_needs_a_snapshot_gets_one_however_many_reads(group):
 
 
 def test_a_follower_refuses_with_the_leader_it_follows(group):
+    """A follower asked as the leader (`follow=False`) refuses with the
+    leader it follows as the hint, and so does its follower read index
+    when that leader does not answer the request."""
     g = group
     n1 = g.elect(1)
     n1._broadcast_append()
+    with pytest.raises(NotLeader) as e:
+        g.nodes[3].read_index(1.0, follow=False)
+    assert e.value.leader_id == 1
+    g.links[3].drop = lambda to, msg: msg["type"] == "read_index"
     with pytest.raises(NotLeader) as e:
         g.nodes[3].read_index(1.0)
     assert e.value.leader_id == 1

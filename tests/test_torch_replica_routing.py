@@ -78,9 +78,12 @@ class Leaders:
                 if v.node_id == self.node_id}
 
     def stepdown_local(self, owner, rs, vnode_id) -> bool:
+        """The member yields, and the group elects the next of its other
+        members, as raft would."""
         if self.current_leader_vnode(owner, rs) != vnode_id:
             return False
-        del self.shared[(owner, rs.id)]
+        self.shared[(owner, rs.id)] = next(
+            v.id for v in rs.vnodes if v.id != vnode_id)
         return True
 
     def invalidate(self, owner, rs_id):
@@ -92,14 +95,15 @@ class Leaders:
 
 class _Member:
     """A raft member as a read sees it: its read index confirms a read
-    where it leads, and names the leader otherwise."""
+    where it leads, and, as the follower read index, where it follows a
+    leader; it names the leader otherwise."""
 
     def __init__(self, leaders: Leaders, owner, rs, vnode_id: int):
         self.lead = leaders.shared.get((owner, rs.id))
         self.vnode_id = vnode_id
 
-    def read_index(self, timeout: float) -> int:
-        if self.lead != self.vnode_id:
+    def read_index(self, timeout: float, follow: bool = True) -> int:
+        if self.lead is None or (self.lead != self.vnode_id and not follow):
             raise NotLeader(self.lead)
         return 0
 
@@ -327,10 +331,11 @@ def test_quarantined_replica_stays_marked_until_repair(cluster3, path):
     finally:
         faults.reset()
 
-    # X's own read hits the damage: quarantine, mark, step down, fail over
+    # X's own read hits the damage: quarantine, mark, step down (another
+    # member is elected), fail over to a member that confirms the read
     _assert_rows(c.scan(x_node), c.want)
     assert c.marks() == {x_vid}
-    assert (OWNER, g.id) not in c.leaders
+    assert c.leaders[(OWNER, g.id)] != x_vid
     for nid, r in c.routes().items():
         assert x_vid not in r, f"node {nid} still reads the suspect replica"
         (alts,) = [a for vid, (_, a) in r.items()
