@@ -1,0 +1,11 @@
+"""95th percentile of the acknowledgement times of every batch
+acknowledged in the window (first send to ack), with the count; in a
+traced run, of those that overlapped no profiled slice (Run.quiet)."""
+import numpy as np
+
+
+def read(run):
+    ms = [(r["done"] - r["start"]) * 1e3 for r in run.quiet(run.writes)]
+    if not ms:
+        return None
+    return {"value": float(np.percentile(ms, 95)), "samples": len(ms)}
