@@ -550,7 +550,7 @@ class MetricsNaming(Rule):
 # 10. stage-catalog — new: profiling stage names must come from the
 #     documented catalog
 # --------------------------------------------------------------------------
-_STAGE_METHODS = {"stage", "count"}
+_STAGE_METHODS = {"stage", "count", "waited"}
 _STAGE_RECEIVERS = {"stages", "_stages"}
 
 

@@ -300,30 +300,32 @@ class Coordinator:
                      sync: bool = False):
         """Split per placement and write each vnode group
         (reference service.rs:565 write_lines)."""
-        owner = f"{tenant}.{db}"
-        self.meta.database(tenant, db)  # raises if missing
-        # gate large ingests on the memory budget (reference raft/writer.rs
-        # :58-84 gates writes on GreedyMemoryPool)
-        est = batch.n_rows() * 128
-        record = db != "usage_schema"
-        if record:
-            # memory-governance ladder at USER ingress only: internal
-            # usage_schema rows and the raft apply/heartbeat plane are
-            # never backpressured (they are how the node drains)
-            memory.write_admit(est)
-        pre_sizes = None
-        if record:
-            try:
-                pre_sizes = self._vnode_cache_sizes(owner)
-            except Exception:
-                record = False   # metrics must never fail the write
-        with self.memory_pool.reservation(est, f"write to {owner}"):
-            self._write_points_inner(tenant, db, owner, batch, sync)
-        if record:
-            try:
-                self._record_write_usage(tenant, db, owner, est, pre_sizes)
-            except Exception:
-                stages.count_error("swallow.coord.record_write_usage")
+        with stages.stage("write.apply_ms"):
+            owner = f"{tenant}.{db}"
+            self.meta.database(tenant, db)  # raises if missing
+            # gate large ingests on the memory budget (reference
+            # raft/writer.rs:58-84 gates writes on GreedyMemoryPool)
+            est = batch.n_rows() * 128
+            record = db != "usage_schema"
+            if record:
+                # memory-governance ladder at USER ingress only: internal
+                # usage_schema rows and the raft apply/heartbeat plane are
+                # never backpressured (they are how the node drains)
+                memory.write_admit(est)
+            pre_sizes = None
+            if record:
+                try:
+                    pre_sizes = self._vnode_cache_sizes(owner)
+                except Exception:
+                    record = False   # metrics must never fail the write
+            with self.memory_pool.reservation(est, f"write to {owner}"):
+                self._write_points_inner(tenant, db, owner, batch, sync)
+            if record:
+                try:
+                    self._record_write_usage(tenant, db, owner, est,
+                                             pre_sizes)
+                except Exception:
+                    stages.count_error("swallow.coord.record_write_usage")
 
     def _write_points_inner(self, tenant, db, owner, batch, sync):
         per_rs: dict[int, tuple[object, WriteBatch]] = {}
@@ -1132,7 +1134,7 @@ class Coordinator:
         missing from a file set (ids and levels) that did not move is
         raised."""
         def file_set(v):
-            with v.lock:
+            with v.locked("lock_wait_ms", "scan"):
                 return frozenset((fm.file_id, fm.level)
                                  for fm in v.summary.version.all_files())
 

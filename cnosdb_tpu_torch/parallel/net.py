@@ -130,7 +130,7 @@ class RpcServer:
                 if fn is None:
                     self._reply(404, pack({"_err": "NoSuchMethod", "_msg": method}))
                     return
-                from ..server.trace import GLOBAL_COLLECTOR
+                from ..server.trace import from_headers
 
                 try:
                     if faults.ENABLED:
@@ -171,9 +171,8 @@ class RpcServer:
                     prof = stages.QueryProfile(node_id=outer.node_id) \
                         if want_profile else None
                     with stages.profile_scope(prof), \
-                            stages.stage(f"rpc_{method}_ms"):
-                        with GLOBAL_COLLECTOR.from_headers(
-                                self.headers, f"rpc:{method}"):
+                            from_headers(self.headers, f"rpc:{method}"):
+                        with stages.stage(f"rpc_{method}_ms"):
                             if dl is not None and dl.qid:
                                 deadline_mod.CANCELS.register(dl.qid, dl)
                                 try:

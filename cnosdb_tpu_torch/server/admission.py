@@ -42,9 +42,10 @@ caches alone cannot get back under the soft watermark: a queued query
 holds no partial state yet, so shedding it frees future memory at zero
 wasted work.
 
-Acquisition happens on the executor worker thread (one thread per
-in-flight HTTP request), so waiting here blocks no event loop. Counters
-and queue-depth/wait gauges feed /metrics via `stats()`.
+Acquisition happens on a worker of the event loop's default executor,
+which every HTTP request shares (min(32, CPUs + 4) threads), so waiting
+here holds a worker and blocks no event loop. Counters and
+queue-depth/wait gauges feed /metrics via `stats()`.
 """
 from __future__ import annotations
 

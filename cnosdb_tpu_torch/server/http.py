@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import contextvars
 import json
 import sys
 import time
@@ -183,6 +184,18 @@ class HttpServer:
         return web.json_response({"version": __version__, "status": "healthy"})
 
     async def handle_write(self, request):
+        from .trace import from_headers
+
+        with from_headers(request.headers, "http:write") as span:
+            resp = await self._write(request, span)
+            span.set_tag("status", resp.status)
+            return resp
+
+    async def _write(self, request, span):
+        """handle_write inside its root span: the body's read and the
+        parse on the event loop, the apply on an executor worker, each a
+        stage, and the waits between them: the executor's queue, and the
+        loop's turn to resume the handler once the worker is done."""
         session = self._session(request)
         self._authorize_write(session)
         precision = request.query.get("precision", "ns")
@@ -190,19 +203,35 @@ class HttpServer:
             prec = Precision.parse(precision)
         except Exception:
             return _err_response(400, ParserError(f"bad precision {precision!r}"))
-        body = await request.text()
+        with stages.stage("write.body_ms"):
+            body = await request.text()
         dl = self._request_deadline(request, self.write_timeout_ms)
+        done = []
 
         def run():
-            with deadline_mod.scope(dl):
-                self.coord.write_points(session.tenant, session.database,
-                                        batch)
+            stages.waited("write.queue_ms", handed)
+            try:
+                with deadline_mod.scope(dl):
+                    self.coord.write_points(session.tenant,
+                                            session.database, batch)
+            finally:
+                done.append(stages.now_ns())
 
         try:
-            batch = parse_lines(body, prec)
+            with stages.stage("write.parse_ms"):
+                batch = parse_lines(body, prec)
+            span.set_tag("rows", batch.n_rows())
             self.limiters.check_write(session.tenant, batch.n_rows())
             loop = asyncio.get_running_loop()
-            await loop.run_in_executor(None, run)
+            handed = stages.now_ns()
+            # the worker runs in a copy of this context: its stages are
+            # children of the request's span
+            try:
+                await loop.run_in_executor(
+                    None, contextvars.copy_context().run, run)
+            finally:
+                if done:
+                    stages.waited("write.resume_ms", done[0])
         except asyncio.CancelledError:
             dl.cancel("client disconnected")
             raise
@@ -242,32 +271,48 @@ class HttpServer:
             pass
 
     async def handle_sql(self, request):
-        session = self._session(request)
-        sql = (await request.text()).strip()
-        if not sql:
-            return _err_response(400, QueryError("empty sql"))
-        accept = request.headers.get("Accept", "application/csv")
-        from .trace import GLOBAL_COLLECTOR
+        from .trace import from_headers
 
-        span = GLOBAL_COLLECTOR.from_headers(request.headers, "http:sql")
-        span.set_tag("sql", sql[:200]).set_tag("tenant", session.tenant)
-        dl = self._request_deadline(request, self.read_timeout_ms)
+        session = self._session(request)
         # opt-in per-query profile summary: X-CnosDB-Profile: 1 installs
         # the profile at ingress so the response can carry its totals
         # (the full profile stays fetchable at /debug/profile?qid=)
         want_profile = request.headers.get(PROFILE_HEADER, "") \
             not in ("", "0", "false")
         prof = stages.QueryProfile() if want_profile else None
+        with from_headers(request.headers, "http:sql") as span:
+            with stages.profile_scope(prof), stages.stage("body_ms"):
+                sql = (await request.text()).strip()
+            if not sql:
+                resp = _err_response(400, QueryError("empty sql"))
+            else:
+                span.set_tag("sql", sql[:200]) \
+                    .set_tag("tenant", session.tenant)
+                resp = await self._sql(request, session, sql, prof)
+            span.set_tag("status", resp.status)
+            return resp
+
+    async def _sql(self, request, session, sql: str, prof):
+        """handle_sql inside its root span, after the body's read: the
+        executor queue, the admission gate and the query on a worker, the
+        loop's turn to resume the handler, and the rendering on the event
+        loop, each a stage of the query's profile `prof` (None unless the
+        request asked for it)."""
+        accept = request.headers.get("Accept", "application/csv")
+        dl = self._request_deadline(request, self.read_timeout_ms)
+        done = []
 
         def run():
-            # on the executor worker thread: one thread per in-flight
-            # request, so blocking in the admission gate is safe
+            # on a worker of the loop's default executor, which every
+            # HTTP request shares (min(32, CPUs + 4) threads): blocking
+            # in the admission gate holds a worker, not the event loop
             # profile_scope(None) is a harmless clear, so no conditional
             with deadline_mod.scope(dl), stages.profile_scope(prof):
-                self.gate.acquire(dl)   # AdmissionRejected → 503
+                stages.waited("queue_ms", handed)
+                with stages.stage("admission_ms"):
+                    self.gate.acquire(dl)   # AdmissionRejected → 503
                 try:
-                    with span:
-                        return self.executor.execute_sql(sql, session)
+                    return self.executor.execute_sql(sql, session)
                 except CnosError:
                     if dl.qid and dl.remote_nodes:
                         # deadline expiry / kill / disconnect unwound the
@@ -280,12 +325,22 @@ class HttpServer:
                     raise
                 finally:
                     self.gate.release()
+                    done.append(stages.now_ns())
 
         t0 = time.monotonic()
         try:
             self.limiters.check_query(session.tenant)
             loop = asyncio.get_running_loop()
-            results = await loop.run_in_executor(None, run)
+            handed = stages.now_ns()
+            # the worker runs in a copy of this context: the query's
+            # spans are children of the request's span
+            try:
+                results = await loop.run_in_executor(
+                    None, contextvars.copy_context().run, run)
+            finally:
+                if done:
+                    with stages.profile_scope(prof):
+                        stages.waited("resume_ms", done[0])
         except asyncio.CancelledError:
             # aiohttp cancels the handler when the client disconnects;
             # flip the cancel flag so the (uninterruptible) worker thread
@@ -308,14 +363,17 @@ class HttpServer:
         self._record_http_usage(request, session, "http_queries", 1)
         self._record_http_usage(request, session, "http_data_in", len(sql))
         rs = results[-1] if results else ResultSet.empty()
-        if "json" in accept:
-            resp = web.Response(text=format_json(rs),
-                                content_type="application/json")
-        elif "table" in accept:
-            resp = web.Response(text=format_table(rs),
-                                content_type="text/plain")
-        else:
-            resp = web.Response(text=format_csv(rs), content_type="text/csv")
+        # rendered into the profile before its summary is read
+        with stages.profile_scope(prof), stages.stage("http.render_ms"):
+            if "json" in accept:
+                resp = web.Response(text=format_json(rs),
+                                    content_type="application/json")
+            elif "table" in accept:
+                resp = web.Response(text=format_table(rs),
+                                    content_type="text/plain")
+            else:
+                resp = web.Response(text=format_csv(rs),
+                                    content_type="text/csv")
         if prof is not None:
             import json as _json
 

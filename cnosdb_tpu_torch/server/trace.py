@@ -1,4 +1,4 @@
-"""Distributed tracing: spans, context propagation, in-process collection.
+"""Distributed tracing: context propagation and export of the process timeline.
 
 Role-parity with the reference's trace crate (common/trace/src/
 global_tracing.rs minitrace + OTLP export, span_ext.rs Span helpers,
@@ -7,124 +7,33 @@ ReaderProxy tskv/src/reader/trace.rs): spans carry (trace_id, span_id,
 parent_id, name, tags, start/duration) and propagate across processes via
 a `cnos-trace-id` header on both the user HTTP API and the node-to-node
 RPC plane. Collection is an in-memory ring per process, queryable through
-`GET /debug/traces` and the `information_schema.traces` virtual table —
-the reference's jaeger-store role collapsed to the embedded case (OTLP
-export is a config hook away: the collector interface takes any sink).
+`GET /debug/traces` — the reference's jaeger-store role collapsed to the
+embedded case (OTLP export is a config hook away: the collector
+interface takes any sink).
+
+The span, the ring and their clock are the process timeline of
+`utils/stages.py` (every `stages.stage()` is a span there); this module
+continues a propagated trace, hands the active one on, and exports.
 """
 from __future__ import annotations
 
-import contextvars
-import secrets
 import threading
-import time
 from ..utils import lockwatch
+from ..utils.stages import (GLOBAL_COLLECTOR, Span, TraceCollector,
+                            _current_span, current_span)
 
 TRACE_HEADER = "cnos-trace-id"
 
-_current_span: contextvars.ContextVar = contextvars.ContextVar(
-    "cnos_current_span", default=None)
 
-
-class Span:
-    __slots__ = ("trace_id", "span_id", "parent_id", "name", "tags",
-                 "start_ns", "duration_ns", "_collector", "_token")
-
-    def __init__(self, trace_id: str, span_id: str, parent_id: str | None,
-                 name: str, collector: "TraceCollector"):
-        self.trace_id = trace_id
-        self.span_id = span_id
-        self.parent_id = parent_id
-        self.name = name
-        self.tags: dict = {}
-        self.start_ns = time.time_ns()
-        self.duration_ns = 0
-        self._collector = collector
-        self._token = None
-
-    def set_tag(self, key: str, value):
-        self.tags[key] = value
-        return self
-
-    def __enter__(self):
-        self._token = _current_span.set(self)
-        return self
-
-    def __exit__(self, exc_type, exc, tb):
-        self.duration_ns = time.time_ns() - self.start_ns
-        if exc is not None:
-            self.tags["error"] = str(exc)
-        if self._token is not None:
-            _current_span.reset(self._token)
-        self._collector.record(self)
-        return False
-
-    def to_dict(self) -> dict:
-        return {"trace_id": self.trace_id, "span_id": self.span_id,
-                "parent_id": self.parent_id, "name": self.name,
-                "tags": dict(self.tags), "start_ns": self.start_ns,
-                "duration_ns": self.duration_ns}
-
-
-class TraceCollector:
-    """Bounded ring of finished spans (reference keeps them in minitrace's
-    collector until OTLP flush; embedded deployments query them back)."""
-
-    def __init__(self, capacity: int = 4096):
-        self.capacity = capacity
-        self._spans: list[dict] = []
-        self._lock = lockwatch.Lock("trace.collector")
-        self.sinks: list = []   # extra consumers (OTLP exporter)
-
-    def record(self, span: Span):
-        d = span.to_dict()
-        with self._lock:
-            self._spans.append(d)
-            if len(self._spans) > self.capacity:
-                del self._spans[:self.capacity // 4]
-        for sink in self.sinks:
-            try:
-                sink(d)
-            except Exception:
-                pass   # a broken exporter must never fail the traced work
-
-    def spans(self, trace_id: str | None = None,
-              limit: int = 500) -> list[dict]:
-        with self._lock:
-            out = self._spans if trace_id is None else \
-                [s for s in self._spans if s["trace_id"] == trace_id]
-            return list(out[-limit:])
-
-    # ------------------------------------------------------------- spans
-    def span(self, name: str, trace_id: str | None = None,
-             parent_id: str | None = None) -> Span:
-        """Start a child of the context span, or a root with the given (or
-        a fresh) trace id — `Span::from_context` in the reference."""
-        cur = _current_span.get()
-        if trace_id is None and cur is not None:
-            trace_id = cur.trace_id
-            parent_id = cur.span_id
-        if trace_id is None:
-            trace_id = secrets.token_hex(8)
-        return Span(trace_id, secrets.token_hex(4), parent_id, name, self)
-
-    def from_headers(self, headers, name: str) -> Span:
-        """Continue a trace propagated over HTTP/RPC: header value is
-        `trace_id[:parent_span_id]` (reference http_ctx.rs)."""
-        raw = headers.get(TRACE_HEADER, "") if headers else ""
-        trace_id = parent = None
-        if raw:
-            trace_id, _, parent = raw.partition(":")
-            parent = parent or None
-        return self.span(name, trace_id=trace_id, parent_id=parent)
-
-
-GLOBAL_COLLECTOR = TraceCollector()
-
-
-def current_span() -> Span | None:
-    """The context-active span, if any (profile plane attaches per-stage
-    timings to the root span it finds here)."""
-    return _current_span.get()
+def from_headers(headers, name: str) -> Span:
+    """Continue a trace propagated over HTTP/RPC: header value is
+    `trace_id[:parent_span_id]` (reference http_ctx.rs)."""
+    raw = headers.get(TRACE_HEADER, "") if headers else ""
+    trace_id = parent = None
+    if raw:
+        trace_id, _, parent = raw.partition(":")
+        parent = parent or None
+    return GLOBAL_COLLECTOR.span(name, trace_id=trace_id, parent_id=parent)
 
 
 def current_trace_header() -> str | None:

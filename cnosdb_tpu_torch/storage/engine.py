@@ -186,7 +186,7 @@ class TsKv:
         for v in victims:
             if freed >= target_bytes:
                 break
-            v.flush(sync=False)
+            v.flush(sync=False, trigger="reclaim")
             freed = before - self.memcache_bytes_used()
         return max(0, freed)
 

@@ -81,11 +81,11 @@ def _mem_snapshot(vnode) -> tuple[list, int]:
     caches while a scan reads them (a restarted replica catching up):
     every chunk at or below the ceiling was whole when it was taken, and
     every chunk appended since carries a higher seq. A DeltaVnodeView
-    took its ceiling when it was built."""
-    lock = getattr(vnode, "lock", None)
-    if lock is None:
+    took its ceiling when it was built. The wait for the lock is the
+    stage `lock_wait_ms`."""
+    if getattr(vnode, "lock", None) is None:
         return [*vnode.immutables, vnode.active], vnode.applied_seq
-    with lock:
+    with vnode.locked("lock_wait_ms", "scan"):
         return [*vnode.immutables, vnode.active], vnode.applied_seq
 
 
@@ -308,7 +308,7 @@ class DeltaVnodeView:
         self.schemas = vnode.schemas
         # the ceiling before the suffix views: a chunk appended while
         # they are built lies above it (see _mem_snapshot)
-        with vnode.lock:
+        with vnode.locked("lock_wait_ms", "scan"):
             self.applied_seq = vnode.applied_seq
         act = vnode.active.suffix_view(after_seq)
         self.active = act if act is not None \

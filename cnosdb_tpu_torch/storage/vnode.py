@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import os
 import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import msgpack
@@ -62,6 +63,8 @@ class VnodeStorage:
         self.schemas = schemas if schemas is not None else {}
         self.memcache_bytes = memcache_bytes
         self.lock = lockwatch.RLock(f"vnode.{vnode_id}")
+        # the last named work that held the lock (VnodeStorage.locked)
+        self._holder: str | None = None
         self.summary = Summary(dir_path)
         self.index = TSIndex(os.path.join(dir_path, "index"))
         self.wal = Wal(os.path.join(dir_path, "wal"), sync_on_append=wal_sync)
@@ -102,7 +105,7 @@ class VnodeStorage:
         the vnode lock so the file set and seq are mutually consistent; a
         write racing the subsequent (unlocked) decode only makes the token
         conservative — its rows re-decode on the next delta and dedup."""
-        with self.lock:
+        with self.locked("lock_wait_ms", "scan"):
             return ScanToken(
                 self.data_version,
                 self.destructive_version,
@@ -145,18 +148,39 @@ class VnodeStorage:
     # ------------------------------------------------------------------ write
     def write(self, batch: WriteBatch, sync: bool = False) -> int:
         """Log + apply one write batch; → assigned WAL seq."""
-        with self.lock:
-            # stamp schema version + column ids into the WAL payload so a
-            # post-crash replay can re-key fields by id across RENAME/DROP
-            batch.stamp_schema(self.schemas)
-            data = batch.encode()
-            seq = self.wal.append(WalEntryType.WRITE, data)
-            if sync:
-                self.wal.sync()
+        with self.locked("write.lock_wait_ms", "write"):
+            with stages.stage("write.wal_ms"):
+                # stamp schema version + column ids into the WAL payload
+                # so a post-crash replay can re-key fields by id across
+                # RENAME/DROP
+                batch.stamp_schema(self.schemas)
+                data = batch.encode()
+                seq = self.wal.append(WalEntryType.WRITE, data)
+                if sync:
+                    self.wal.sync()
             self._apply_write(batch, seq)
             if seq > self.applied_seq:
                 self.applied_seq = seq
             return seq
+
+    @contextmanager
+    def locked(self, wait: str, holder: str):
+        """Hold the vnode lock as `holder`, its acquisition timed as the
+        stage `wait`. A wait that found the lock held tags `holder` with
+        the work that held it last, read once the lock is handed over:
+        `write`, `scan`, `flush_ms` or `compact_ms` (a flush or compaction
+        inside a write names the rest of the write's hold too); a hold
+        that names nothing (replay, replication, DDL, snapshots) leaves
+        the name before it, and "none" means no named hold yet."""
+        with stages.stage(wait) as span:
+            if not self.lock.acquire(blocking=False):
+                self.lock.acquire()
+                span.set_tag("holder", self._holder or "none")
+        self._holder = holder
+        try:
+            yield
+        finally:
+            self.lock.release()
 
     def apply_entry(self, entry_type: int, data: bytes, seq: int):
         """Apply a replicated log entry (replication layer path): the entry
@@ -202,24 +226,26 @@ class VnodeStorage:
         # RAFT_BLANK/MEMBERSHIP: no storage effect
 
     def _apply_write(self, batch: WriteBatch, seq: int):
-        self.data_version += 1
-        for table, series_list in batch.tables.items():
-            # the batch's schema stamp vs the live schema: replayed entries
-            # written before a RENAME/DROP re-key their fields by column id
-            # (live writes stamp and apply under one lock, so remap is None)
-            remap = batch.replay_remap(table, self.schemas.get(table))
-            for sr in series_list:
-                sid = self.index.add_series_if_not_exists(sr.key)
-                if remap is not None:
-                    fields = {}
-                    for name, v in sr.fields.items():
-                        tgt = remap.get(name, name)
-                        if tgt is not None:   # None → column dropped
-                            fields[tgt] = v
-                    sr = SeriesRows(sr.key, sr.timestamps, fields)
-                self.active.write_series(table, sid, sr, seq)
+        with stages.stage("write.memcache_ms"):
+            self.data_version += 1
+            for table, series_list in batch.tables.items():
+                # the batch's schema stamp vs the live schema: replayed
+                # entries written before a RENAME/DROP re-key their fields
+                # by column id (live writes stamp and apply under one lock,
+                # so remap is None)
+                remap = batch.replay_remap(table, self.schemas.get(table))
+                for sr in series_list:
+                    sid = self.index.add_series_if_not_exists(sr.key)
+                    if remap is not None:
+                        fields = {}
+                        for name, v in sr.fields.items():
+                            tgt = remap.get(name, name)
+                            if tgt is not None:   # None → column dropped
+                                fields[tgt] = v
+                        sr = SeriesRows(sr.key, sr.timestamps, fields)
+                    self.active.write_series(table, sid, sr, seq)
         if self.active.should_flush():
-            self.flush()
+            self.flush(trigger="inline")
 
     # ------------------------------------------------------------------ flush
     def switch_to_immutable(self):
@@ -230,20 +256,28 @@ class VnodeStorage:
             self.immutables.append(self.active)
             self.active = MemCache(self.vnode_id, self.memcache_bytes)
 
-    def flush(self, sync: bool = True):
-        """Rotate active cache and persist ALL immutables to L0 files."""
+    def flush(self, sync: bool = True, trigger: str = "explicit"):
+        """Rotate active cache and persist ALL immutables to L0 files.
+        `trigger` tags the flush's span: "inline" (a write filled the
+        memory cache), "reclaim" (the memory broker) or "explicit"."""
         flushed = False
-        with self.lock:
+        with self.lock, stages.stage("flush_ms") as span:
+            self._holder = "flush_ms"
             self.switch_to_immutable()
             if self.immutables:
                 self.data_version += 1
                 flushed = True
+            rows = written = 0
             for cache in self.immutables:
+                rows += sum(sd.n_rows for sd in cache.series.values())
                 fid = self.summary.next_file_id()
                 path = os.path.join(self.dir, "delta", f"_{fid:06d}.tsm")
                 edit = flush_memcache(cache, fid, path, self.schemas)
                 if edit is not None:
+                    written += sum(fm.size for fm in edit.add_files)
                     self.summary.apply(edit, sync=sync)
+            span.set_tag("trigger", trigger).set_tag("rows", rows) \
+                .set_tag("bytes", written)
             self.immutables.clear()
             self.index.sync()
             self.wal.sync()
@@ -311,7 +345,8 @@ class VnodeStorage:
 
     def compact(self, force_level: int | None = None) -> bool:
         """Run at most one compaction round; → True if work was done."""
-        with self.lock:
+        with self.lock, stages.stage("compact_ms") as span:
+            self._holder = "compact_ms"
             if self._promote_l0():
                 return True
             req = self.picker.pick(self.summary.version,
@@ -319,6 +354,7 @@ class VnodeStorage:
             if req is None:
                 return False
             fid = self.summary.next_file_id()
+            span.set_tag("bytes_read", sum(f.size for f in req.files))
             edit = run_compaction(
                 self.summary.version, req, fid,
                 alloc_id=self.summary.next_file_id,
@@ -326,6 +362,8 @@ class VnodeStorage:
                 schemas=self.schemas)
             if edit is None:
                 return False
+            span.set_tag("bytes_written",
+                         sum(f.size for f in edit.add_files))
             # bump only when the file set actually changes so no-op rounds
             # don't invalidate scan caches
             self.data_version += 1
@@ -427,7 +465,8 @@ class VnodeStorage:
         levels would rewrite the tail repeatedly."""
         from .compaction import CompactReq
 
-        with self.lock:
+        with self.lock, stages.stage("compact_ms") as span:
+            self._holder = "compact_ms"
             version = self.summary.version
             exclude = self._compaction_exclude()
             files = [f for lvl in range(0, 5)
@@ -442,6 +481,7 @@ class VnodeStorage:
                 target += 1
             req = CompactReq(files, target)
             fid = self.summary.next_file_id()
+            span.set_tag("bytes_read", total)
             edit = run_compaction(
                 self.summary.version, req, fid,
                 alloc_id=self.summary.next_file_id,
@@ -449,6 +489,8 @@ class VnodeStorage:
                 schemas=self.schemas)
             if edit is None:
                 return False
+            span.set_tag("bytes_written",
+                         sum(f.size for f in edit.add_files))
             self.data_version += 1
             self.summary.apply(edit)
             gc_compacted_files(self.summary.version, edit)

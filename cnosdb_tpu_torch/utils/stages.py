@@ -3,8 +3,14 @@
 Every `stage()` / `count()` call lands in the *active query's*
 :class:`QueryProfile` (a contextvar installed at ingress by the SQL
 executor, by `EXPLAIN ANALYZE`, or by bench.py). With no profile in
-scope both are a single contextvar read — cheap enough to leave on in
-production. Profiles propagate:
+scope `count()` is a single contextvar read. `stage()` is the one way
+to time a piece of work: besides the profile, it records a span of the
+same name on the process timeline (below), profile or not, as a child
+of the context span; `waited()` records a wait handed from one thread
+to another the same way. Both cost a few microseconds, cheap
+enough to leave on at the grain they are used (a request, a vnode, a
+flush, a compaction; never a page, a row or a kernel launch). Profiles
+propagate:
 
   * across the shared scan/decode pools (utils/executor.py re-runs each
     task inside the submitting thread's contextvars.Context), and
@@ -28,10 +34,11 @@ byte totals; everything else is a plain count.
 from __future__ import annotations
 
 import contextvars
+import itertools
+import secrets
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
 from . import lockwatch
 
 # The documented profile schema. A name missing here is invisible to
@@ -58,13 +65,16 @@ STAGE_CATALOG: dict[str, str] = {
     "group_spill": "group-by accumulator epochs spilled to disk by the "
                    "memory broker's GroupSpiller (sql/executor.py)",
     "distinct_path.sort": "count(DISTINCT) via host sorted pair codes",
-    "distinct_path.device": "count(DISTINCT) via the jax segment kernels",
+    "distinct_path.device": "count(DISTINCT) via the torch sort and "
+                            "segment ops on the card (ops/kernels.py)",
     "distinct_path.fallback": "count(DISTINCT) via the scalar set fold",
-    "pallas_engagements": "aggregations that ran through a Pallas kernel",
+    "pallas_engagements": "aggregations that ran through K1, the "
+                          "hand-written CUDA windowed segment kernel "
+                          "(ops/csrc/segment_window.cu)",
     "kernel_cache.hit": "segment-geometry/program cache hits on the "
                         "device batch (compile/derive skipped)",
     "kernel_cache.miss": "segment-geometry/program cache misses "
-                         "(derived data rebuilt, jit may recompile)",
+                         "(derived data rebuilt and uploaded again)",
     "matview.refresh_ms": "materialized-rollup delta refresh (scan the "
                           "[hwm, watermark) slice + fold + persist)",
     "matview.delta_rows": "raw rows folded into rollup partials by delta "
@@ -94,7 +104,8 @@ STAGE_CATALOG: dict[str, str] = {
                                      "to produce on selective scans)",
     "topk.host": "ORDER BY+LIMIT answered by np.partition select-then-"
                  "gather instead of a full sort",
-    "topk.device": "ORDER BY+LIMIT thresholds computed by jax.lax.top_k",
+    "topk.device": "ORDER BY+LIMIT thresholds computed by torch.topk on "
+                   "the card",
     "topk.declined": "ORDER BY+LIMIT shapes outside the top-k fast path "
                      "(nulls/NaN/object keys, k≥n) — full sort",
     "cold.fetch_ms": "ranged object-store GETs for cold-tier pages "
@@ -165,6 +176,40 @@ STAGE_CATALOG: dict[str, str] = {
     "hedge.suppressed": "hedge triggers that elapsed without firing "
                         "(limiter / no budget / no alternate — proves "
                         "hedging stays tail-only)",
+    # the write path and the waits (spans on the timeline; the query's
+    # own land in its profile too)
+    "write.body_ms": "reading a write request's body, awaited on the "
+                     "HTTP event loop (server/http.py handle_write)",
+    "write.parse_ms": "line-protocol parse of one write request, on the "
+                      "HTTP event loop (server/http.py handle_write)",
+    "write.queue_ms": "a write request's wait in the HTTP executor's "
+                      "queue: hand-off to the first line on a worker",
+    "write.apply_ms": "Coordinator.write_points: memory admission, bucket "
+                      "split, schema, the replica sets' writes",
+    "write.lock_wait_ms": "a write's wait for its vnode's lock (tag "
+                          "`holder`: what held it, storage/vnode.py "
+                          "VnodeStorage.locked)",
+    "write.wal_ms": "a vnode write's WAL record: encode, append, sync "
+                    "when asked",
+    "write.memcache_ms": "a vnode write's index and memory-cache insert",
+    "write.resume_ms": "a write's wait for the HTTP event loop to resume "
+                       "its handler once the worker is done",
+    "flush_ms": "one vnode flush of its memory caches to an L0 file (tags "
+                "`trigger` inline / reclaim / explicit, rows, bytes)",
+    "compact_ms": "one compaction round of a vnode (tags bytes read and "
+                  "written)",
+    "body_ms": "reading a query request's body, awaited on the HTTP "
+               "event loop (server/http.py handle_sql)",
+    "queue_ms": "a query's wait in the HTTP executor's queue: hand-off to "
+                "the first line on a worker",
+    "admission_ms": "a query's wait at the admission gate "
+                    "(server/admission.py)",
+    "lock_wait_ms": "a scan's wait for a vnode's lock (tag `holder`: what "
+                    "held it, storage/vnode.py VnodeStorage.locked)",
+    "resume_ms": "a query's wait for the HTTP event loop to resume its "
+                 "handler once the worker is done",
+    "http.render_ms": "rendering a query's answer (CSV, JSON or table), "
+                      "on the HTTP event loop",
 }
 
 # Prefixes for names composed at runtime (skipped by the literal lint
@@ -396,18 +441,252 @@ class ProfileRing:
 PROFILES = ProfileRing()
 
 
+# ---------------------------------------------------------------- timeline
+# The process timeline: every `stage()` is also a span here, profile or
+# not, in one bounded ring, always on. A finished span is one tuple
+# (`FIELDS`) appended to a deque, which needs no lock; dicts are built
+# only when the ring is read. Each span keeps its thread and the CPU
+# time that thread spent inside it, so that a wait and a piece of work
+# can be told apart inside one span. Spans are timed on the monotonic
+# clock (`now_ns()`), so a step of the system clock moves no duration,
+# and each also keeps its start on `epoch_ns()`, torch.profiler's clock:
+# the distance between the two clocks moves (by a millisecond within
+# seconds on an H100 host), so no one offset maps the first onto the
+# second. server/trace.py propagates and exports the spans.
+_current_span: contextvars.ContextVar = contextvars.ContextVar(
+    "cnos_current_span", default=None)
+
+# ids: numbers of a process counter, written with a per-process random
+# prefix when read (16 hex digits, unique across the nodes of a cluster
+# without reading os.urandom a span)
+_ID_PREFIX = secrets.token_hex(4)
+_ids = itertools.count(1)
+
+# what a finished span is in the ring
+FIELDS = ("seq", "name", "trace_id", "span_id", "parent_id", "thread",
+          "start_ns", "end_ns", "cpu_ns", "tags", "epoch_ns")
+
+
+def now_ns() -> int:
+    """The timeline's clock: `time.monotonic_ns()`, the clock of
+    `time.monotonic()`."""
+    return time.monotonic_ns()
+
+
+def epoch_ns() -> int:
+    """Now in ns since the epoch, the clock torch.profiler stamps a trace
+    on (an event of an exported trace sits at `baseTimeNanoseconds` +
+    `ts` x 1,000 ns), and OTLP's."""
+    return time.time_ns()
+
+
+def monotonic_s(ns: int) -> float:
+    """A timeline instant on `time.monotonic()`'s clock, in seconds."""
+    return ns / 1e9
+
+
+def _id_str(x) -> str | None:
+    """An id as the wire and the readers see it: a local id is a number
+    of the process counter, a propagated one the string it came as."""
+    if x is None or isinstance(x, str):
+        return x
+    return f"{_ID_PREFIX}{x:08x}"
+
+
+class Span:
+    """One timed piece of work. Its ids are kept raw (see `_id_str`) and
+    formatted when read; with a query profile (`profile`), it adds its
+    ms to the profile under its name as it ends."""
+
+    __slots__ = ("_trace", "_id", "_parent", "name", "tags", "start_ns",
+                 "duration_ns", "epoch_ns", "thread", "cpu_ns", "_collector",
+                 "_token", "_profile")
+
+    def __init__(self, trace, span_id, parent, name: str,
+                 collector: "TraceCollector", profile=None):
+        self._trace = trace
+        self._id = span_id
+        self._parent = parent
+        self.name = name
+        self.tags: dict | None = None
+        self.start_ns = 0
+        self.duration_ns = 0
+        self.epoch_ns = 0
+        self.thread = 0
+        self.cpu_ns = 0
+        self._collector = collector
+        self._token = None
+        self._profile = profile
+
+    @property
+    def trace_id(self) -> str:
+        return _id_str(self._trace)
+
+    @property
+    def span_id(self) -> str:
+        return _id_str(self._id)
+
+    @property
+    def parent_id(self) -> str | None:
+        return _id_str(self._parent)
+
+    def set_tag(self, key: str, value):
+        if self.tags is None:
+            self.tags = {}
+        self.tags[key] = value
+        return self
+
+    def __enter__(self):
+        self._token = _current_span.set(self)
+        self.thread = threading.get_ident()
+        self.epoch_ns = epoch_ns()
+        self.start_ns = time.monotonic_ns()
+        self.cpu_ns = time.thread_time_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.cpu_ns = time.thread_time_ns() - self.cpu_ns
+        self.duration_ns = time.monotonic_ns() - self.start_ns
+        if exc is not None:
+            self.set_tag("error", str(exc))
+        if self._token is not None:
+            _current_span.reset(self._token)
+        if self._profile is not None:
+            self._profile.add_ms(self.name, self.duration_ns / 1e6)
+        self._collector.record(self)
+        return False
+
+
+def _as_dict(rec: tuple) -> dict:
+    """A span of the ring as its readers outside the process see it: ids
+    formatted, `start_ns` since the epoch (`epoch_ns`)."""
+    (_seq, name, trace_id, span_id, parent_id, thread, start, end, cpu,
+     tags, epoch) = rec
+    return {"trace_id": _id_str(trace_id), "span_id": _id_str(span_id),
+            "parent_id": _id_str(parent_id), "name": name,
+            "tags": dict(tags or {}), "start_ns": epoch,
+            "duration_ns": end - start, "thread": thread, "cpu_ns": cpu}
+
+
+class TraceCollector:
+    """Bounded ring of finished spans (reference keeps them in minitrace's
+    collector until OTLP flush; embedded deployments query them back).
+
+    The default capacity holds a minute of a loaded node's spans and its
+    warm-up: the benchmark's live cell records a few hundred a second.
+    `dropped` counts the spans that fell off the ring."""
+
+    def __init__(self, capacity: int = 1 << 16):
+        self.capacity = capacity
+        self._ring: deque = deque(maxlen=capacity)
+        self._seq = itertools.count()
+        self.sinks: list = []   # extra consumers (OTLP exporter)
+
+    def record(self, span: Span):
+        self.add(span.name, span._trace, span._id, span._parent, span.thread,
+                 span.start_ns, span.start_ns + span.duration_ns,
+                 span.cpu_ns, span.tags, span.epoch_ns)
+
+    def add(self, name: str, trace_id, span_id, parent_id, thread: int,
+            start_ns: int, end_ns: int, cpu_ns: int = 0,
+            tags: dict | None = None, epoch: int | None = None):
+        """Append one finished span (see FIELDS; ids raw, `_id_str`). A
+        span given no `epoch` start is put on that clock by the clocks'
+        distance now: right for a span that has just ended."""
+        if epoch is None:
+            epoch = start_ns + epoch_ns() - now_ns()
+        rec = (next(self._seq), name, trace_id, span_id, parent_id, thread,
+               start_ns, end_ns, cpu_ns, tags, epoch)
+        self._ring.append(rec)
+        for sink in self.sinks:
+            try:
+                sink(_as_dict(rec))
+            except Exception:
+                pass   # a broken exporter must never fail the traced work
+
+    @property
+    def dropped(self) -> int:
+        """Spans recorded and no longer in the ring."""
+        ring = self._ring
+        try:
+            return ring[-1][0] + 1 - len(ring)
+        except IndexError:
+            return 0
+
+    def records(self) -> list[tuple]:
+        """Every span in the ring, oldest first (tuples, see FIELDS)."""
+        return list(self._ring)
+
+    def window(self, lo_ns: int, hi_ns: int) -> list[tuple] | None:
+        """The spans that ended in [lo_ns, hi_ns], or None when the ring
+        dropped spans that may have ended there (spans enter the ring as
+        they end, so the oldest one kept bounds what was dropped)."""
+        recs = self.records()
+        if recs and recs[0][0] > 0 and recs[0][7] >= lo_ns:
+            return None
+        return [r for r in recs if lo_ns <= r[7] <= hi_ns]
+
+    def spans(self, trace_id: str | None = None,
+              limit: int = 500) -> list[dict]:
+        recs = self.records()
+        if trace_id is not None:
+            recs = [r for r in recs if _id_str(r[2]) == trace_id]
+        return [_as_dict(r) for r in recs[-limit:]]
+
+    def span(self, name: str, trace_id: str | None = None,
+             parent_id: str | None = None, profile=None) -> Span:
+        """Start a child of the context span, or a root with the given (or
+        a fresh) trace id — `Span::from_context` in the reference."""
+        cur = _current_span.get()
+        if trace_id is None and cur is not None:
+            trace_id = cur._trace
+            parent_id = cur._id
+        if trace_id is None:
+            trace_id = next(_ids)
+        return Span(trace_id, next(_ids), parent_id, name, self, profile)
+
+    def waited(self, name: str, start_ns: int) -> int:
+        """Record a wait that began at `start_ns`, on this thread or on
+        another (a hand-off between threads), and ends now, on this
+        thread, as a child of the context span. It used no CPU of its
+        own. → its end (ns)."""
+        cur = _current_span.get()
+        end = time.monotonic_ns()
+        if cur is None:
+            self.add(name, next(_ids), next(_ids), None,
+                     threading.get_ident(), start_ns, end)
+        else:
+            self.add(name, cur._trace, next(_ids), cur._id,
+                     threading.get_ident(), start_ns, end)
+        return end
+
+
+GLOBAL_COLLECTOR = TraceCollector()
+
+
+def current_span() -> Span | None:
+    """The context-active span, if any (profile plane attaches per-stage
+    timings to the root span it finds here)."""
+    return _current_span.get()
+
+
 # --------------------------------------------------------------- recording
-@contextmanager
-def stage(name: str):
+def stage(name: str) -> Span:
+    """Time a block (`with stages.stage(name) as span:`) as `name`: a span
+    on the process timeline, child of the context span (`span` takes its
+    tags), and the block's ms in the active query profile when there is
+    one."""
+    return GLOBAL_COLLECTOR.span(name, profile=_profile.get())
+
+
+def waited(name: str, start_ns: int) -> None:
+    """Record a wait that began at `start_ns` (`now_ns()`, taken on this
+    thread or the one that handed the work over) and ends now: a span on
+    the timeline, and its ms in the active query profile."""
+    end = GLOBAL_COLLECTOR.waited(name, start_ns)
     prof = _profile.get()
-    if prof is None:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        prof.add_ms(name, (time.perf_counter() - t0) * 1e3)
+    if prof is not None:
+        prof.add_ms(name, (end - start_ns) / 1e6)
 
 
 def count(name: str, n: int = 1) -> None:

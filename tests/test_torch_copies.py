@@ -276,7 +276,10 @@ SUBS = {
          "SwallowedException(), TorchSync(),"),
         # every rule scope is a relpath under the linted package
         ('"cnosdb_tpu/', '"cnosdb_tpu_torch/'),
-        ("~cnosdb_tpu.analysis.Rule", "~cnosdb_tpu_torch.analysis.Rule")],
+        ("~cnosdb_tpu.analysis.Rule", "~cnosdb_tpu_torch.analysis.Rule"),
+        # stages.waited() takes a catalog name too
+        ('_STAGE_METHODS = {"stage", "count"}\n',
+         '_STAGE_METHODS = {"stage", "count", "waited"}\n')],
     "analysis/interproc.py": _INTERPROC_SUBS,
     # reads are linearizable through the read index; there are no leases
     "parallel/raft.py": [
@@ -475,6 +478,167 @@ _new_bytes.argtypes = [ctypes.c_void_p, ctypes.c_ssize_t]
 #   memcache_overlap  the series also has unflushed rows: its file pages
 #                 merge with them on the per-series Python path
 """)],
+    # the span, the ring and their clock are the timeline of
+    # utils/stages.py; this module continues a propagated trace and
+    # exports (Span, TraceCollector and current_span move, see DROPPED;
+    # from_headers is a function of the module, see ADDED)
+    "server/trace.py": [
+        ('"""Distributed tracing: spans, context propagation, in-process '
+         'collection.\n',
+         '"""Distributed tracing: context propagation and export of the '
+         'process timeline.\n'),
+        ("""`GET /debug/traces` and the `information_schema.traces` virtual table —
+the reference's jaeger-store role collapsed to the embedded case (OTLP
+export is a config hook away: the collector interface takes any sink).
+""", """`GET /debug/traces` — the reference's jaeger-store role collapsed to the
+embedded case (OTLP export is a config hook away: the collector
+interface takes any sink).
+
+The span, the ring and their clock are the process timeline of
+`utils/stages.py` (every `stages.stage()` is a span there); this module
+continues a propagated trace, hands the active one on, and exports.
+"""),
+        ("import contextvars\nimport secrets\nimport threading\nimport time\n"
+         "from ..utils import lockwatch\n",
+         "import threading\nfrom ..utils import lockwatch\n"
+         "from ..utils.stages import (GLOBAL_COLLECTOR, Span, TraceCollector,\n"
+         "                            _current_span, current_span)\n"),
+        ('_current_span: contextvars.ContextVar = contextvars.ContextVar(\n'
+         '    "cnos_current_span", default=None)\n', ""),
+        ("GLOBAL_COLLECTOR = TraceCollector()\n", "")],
+    "utils/stages.py": [
+        ("""scope both are a single contextvar read — cheap enough to leave on in
+production. Profiles propagate:""", """scope `count()` is a single contextvar read. `stage()` is the one way
+to time a piece of work: besides the profile, it records a span of the
+same name on the process timeline (below), profile or not, as a child
+of the context span; `waited()` records a wait handed from one thread
+to another the same way. Both cost a few microseconds, cheap
+enough to leave on at the grain they are used (a request, a vnode, a
+flush, a compaction; never a page, a row or a kernel launch). Profiles
+propagate:"""),
+        ("import contextvars\nimport threading\n",
+         "import contextvars\nimport itertools\nimport secrets\n"
+         "import threading\n"),
+        ("from contextlib import contextmanager\nfrom . import lockwatch\n",
+         "from . import lockwatch\n"),
+        ('    "distinct_path.device": "count(DISTINCT) via the jax segment '
+         'kernels",',
+         '    "distinct_path.device": "count(DISTINCT) via the torch sort '
+         'and "\n'
+         '                            "segment ops on the card '
+         '(ops/kernels.py)",'),
+        ('    "pallas_engagements": "aggregations that ran through a Pallas '
+         'kernel",',
+         '    "pallas_engagements": "aggregations that ran through K1, the "\n'
+         '                          "hand-written CUDA windowed segment '
+         'kernel "\n'
+         '                          "(ops/csrc/segment_window.cu)",'),
+        ('                         "(derived data rebuilt, jit may '
+         'recompile)",',
+         '                         "(derived data rebuilt and uploaded '
+         'again)",'),
+        ('    "topk.device": "ORDER BY+LIMIT thresholds computed by '
+         'jax.lax.top_k",',
+         '    "topk.device": "ORDER BY+LIMIT thresholds computed by '
+         'torch.topk on "\n'
+         '                   "the card",'),
+        ("""                        "hedging stays tail-only)",
+}""", """                        "hedging stays tail-only)",
+    # the write path and the waits (spans on the timeline; the query's
+    # own land in its profile too)
+    "write.body_ms": "reading a write request's body, awaited on the "
+                     "HTTP event loop (server/http.py handle_write)",
+    "write.parse_ms": "line-protocol parse of one write request, on the "
+                      "HTTP event loop (server/http.py handle_write)",
+    "write.queue_ms": "a write request's wait in the HTTP executor's "
+                      "queue: hand-off to the first line on a worker",
+    "write.apply_ms": "Coordinator.write_points: memory admission, bucket "
+                      "split, schema, the replica sets' writes",
+    "write.lock_wait_ms": "a write's wait for its vnode's lock (tag "
+                          "`holder`: what held it, storage/vnode.py "
+                          "VnodeStorage.locked)",
+    "write.wal_ms": "a vnode write's WAL record: encode, append, sync "
+                    "when asked",
+    "write.memcache_ms": "a vnode write's index and memory-cache insert",
+    "write.resume_ms": "a write's wait for the HTTP event loop to resume "
+                       "its handler once the worker is done",
+    "flush_ms": "one vnode flush of its memory caches to an L0 file (tags "
+                "`trigger` inline / reclaim / explicit, rows, bytes)",
+    "compact_ms": "one compaction round of a vnode (tags bytes read and "
+                  "written)",
+    "body_ms": "reading a query request's body, awaited on the HTTP "
+               "event loop (server/http.py handle_sql)",
+    "queue_ms": "a query's wait in the HTTP executor's queue: hand-off to "
+                "the first line on a worker",
+    "admission_ms": "a query's wait at the admission gate "
+                    "(server/admission.py)",
+    "lock_wait_ms": "a scan's wait for a vnode's lock (tag `holder`: what "
+                    "held it, storage/vnode.py VnodeStorage.locked)",
+    "resume_ms": "a query's wait for the HTTP event loop to resume its "
+                 "handler once the worker is done",
+    "http.render_ms": "rendering a query's answer (CSV, JSON or table), "
+                      "on the HTTP event loop",
+}"""),
+        ("PROFILES = ProfileRing()\n",
+         """PROFILES = ProfileRing()
+
+
+# ---------------------------------------------------------------- timeline
+# The process timeline: every `stage()` is also a span here, profile or
+# not, in one bounded ring, always on. A finished span is one tuple
+# (`FIELDS`) appended to a deque, which needs no lock; dicts are built
+# only when the ring is read. Each span keeps its thread and the CPU
+# time that thread spent inside it, so that a wait and a piece of work
+# can be told apart inside one span. Spans are timed on the monotonic
+# clock (`now_ns()`), so a step of the system clock moves no duration,
+# and each also keeps its start on `epoch_ns()`, torch.profiler's clock:
+# the distance between the two clocks moves (by a millisecond within
+# seconds on an H100 host), so no one offset maps the first onto the
+# second. server/trace.py propagates and exports the spans.
+_current_span: contextvars.ContextVar = contextvars.ContextVar(
+    "cnos_current_span", default=None)
+
+# ids: numbers of a process counter, written with a per-process random
+# prefix when read (16 hex digits, unique across the nodes of a cluster
+# without reading os.urandom a span)
+_ID_PREFIX = secrets.token_hex(4)
+_ids = itertools.count(1)
+
+# what a finished span is in the ring
+FIELDS = ("seq", "name", "trace_id", "span_id", "parent_id", "thread",
+          "start_ns", "end_ns", "cpu_ns", "tags", "epoch_ns")
+
+GLOBAL_COLLECTOR = TraceCollector()
+""")],
+    # the handlers' root spans and the executor's context
+    "server/http.py": [
+        ("import base64\nimport json\n",
+         "import base64\nimport contextvars\nimport json\n")],
+    # the executor is the loop's default one, shared by every request
+    "server/admission.py": [
+        ("""Acquisition happens on the executor worker thread (one thread per
+in-flight HTTP request), so waiting here blocks no event loop. Counters
+and queue-depth/wait gauges feed /metrics via `stats()`.""",
+         """Acquisition happens on a worker of the event loop's default executor,
+which every HTTP request shares (min(32, CPUs + 4) threads), so waiting
+here holds a worker and blocks no event loop. Counters and
+queue-depth/wait gauges feed /metrics via `stats()`.""")],
+    # an RPC's stage is a child of the span its caller's headers carry on
+    "parallel/net.py": [
+        ("                from ..server.trace import GLOBAL_COLLECTOR\n",
+         "                from ..server.trace import from_headers\n"),
+        ("""                    with stages.profile_scope(prof), \\
+                            stages.stage(f"rpc_{method}_ms"):
+                        with GLOBAL_COLLECTOR.from_headers(
+                                self.headers, f"rpc:{method}"):
+""", """                    with stages.profile_scope(prof), \\
+                            from_headers(self.headers, f"rpc:{method}"):
+                        with stages.stage(f"rpc_{method}_ms"):
+""")],
+    "storage/vnode.py": [
+        ("import threading\nfrom dataclasses import dataclass\n",
+         "import threading\nfrom contextlib import contextmanager\n"
+         "from dataclasses import dataclass\n")],
 }
 # per file: functions rewritten for the port (qualified names)
 REWRITTEN = {
@@ -561,7 +725,9 @@ REWRITTEN = {
                                 "Coordinator.close",
                                 "Coordinator.tag_values",
                                 "Coordinator.tag_values_local",
-                                "Coordinator.series_keys_local"},
+                                "Coordinator.series_keys_local",
+                                # the write is the stage write.apply_ms
+                                "Coordinator.write_points"},
     # a leader read at a member that does not lead, or cannot confirm
     # through its read index that it does, is answered with a redirect
     # to the leader it follows, not scanned; a confirmed read is served
@@ -590,12 +756,32 @@ REWRITTEN = {
     # watermark, and a node's boot starts the members of its replicated
     # vnodes (their unflushed entries would otherwise wait for a write)
     "storage/vnode.py": {"VnodeStorage.__init__", "VnodeStorage._replay_wal",
-                         "VnodeStorage.apply_entry"},
+                         "VnodeStorage.apply_entry",
+                         # the process timeline: the write's lock wait,
+                         # log and memory-cache insert, a flush (its
+                         # trigger, rows and bytes) and a compaction
+                         # round (bytes read and written) are stages; a
+                         # scan's lock wait too
+                         "VnodeStorage.write", "VnodeStorage._apply_write",
+                         "VnodeStorage.flush", "VnodeStorage.compact",
+                         "VnodeStorage.compact_major",
+                         "VnodeStorage.scan_token"},
+    # the memory broker's flushes are tagged as such
+    "storage/engine.py": {"TsKv._reclaim_memcache"},
+    # a stage records a span on the process timeline too
+    "utils/stages.py": {"stage"},
     "parallel/replica.py": {"VnodeStateMachine.apply",
                             "VnodeStateMachine.install_snapshot",
                             "ReplicaGroupManager.get_or_build"},
     "server/http.py": {"build_server", "build_cluster_node",
-                       "HttpServer.handle_health"},
+                       "HttpServer.handle_health",
+                       # a write and a query are each a root span from
+                       # the handler's entry to its response (the query's
+                       # opened on the worker after admission), the
+                       # worker runs in the handler's context, and the
+                       # parse, the executor's queue, the admission gate
+                       # and the rendering are stages
+                       "HttpServer.handle_write", "HttpServer.handle_sql"},
     # why a group elects or does not, on /debug/health: the ticker's age
     # and swallowed errors, each prevote round's tally, and the prevotes
     # a member refused, by reason (after a leader's SIGKILL a group
@@ -663,6 +849,9 @@ DROPPED = {
                               "Project._add_jit_alias", "RecompileHazard"},
     # a broadcast's sends run in each peer's sender (RaftNode._sender)
     "parallel/raft.py": {"RaftNode._safe_send_append"},
+    # the span, its collector and the context span: the timeline's, in
+    # utils/stages.py
+    "server/trace.py": {"Span", "TraceCollector", "current_span"},
 }
 # per file: functions and classes the port adds
 ADDED = {
@@ -682,7 +871,21 @@ ADDED = {
     # the replica restart: the tail an open leaves to raft, the index a
     # member resumes from, the members a boot starts, the watermark a
     # scan takes, and the part of a memory-cache series at or below it
-    "storage/vnode.py": {"VnodeStorage.replay_raft_tail"},
+    "storage/vnode.py": {"VnodeStorage.replay_raft_tail",
+                         # the lock, its wait timed and its holder named
+                         "VnodeStorage.locked"},
+    # a propagated trace continued, as a function of the module
+    "server/trace.py": {"from_headers"},
+    # the timeline: the span (its thread and CPU time), the ring of
+    # tuples it is recorded in and the context span, their clocks (the
+    # monotonic one and the profiler's) and the map of the first onto
+    # the monotonic clock's seconds, the ids; a wait
+    # handed between threads, recorded as a stage
+    "utils/stages.py": {"Span", "TraceCollector", "current_span", "now_ns",
+                        "epoch_ns", "monotonic_s", "_id_str", "_as_dict",
+                        "waited"},
+    # the handlers' bodies inside their root spans
+    "server/http.py": {"HttpServer._write", "HttpServer._sql"},
     "parallel/raft.py": {"WalLogStore.first_index",
                          "RaftNode.election_stats",
                          # the read index, its leadership check and
@@ -754,7 +957,10 @@ def _mask(text: str, names: set, dropped: set = frozenset()) -> str:
                 q = prefix + child.name
                 if q in names or q in dropped:
                     found.add(q)
-                    for i in range(child.lineno - 1, child.end_lineno):
+                    # a function's decorators go with it
+                    first = min([d.lineno for d in child.decorator_list]
+                                + [child.lineno])
+                    for i in range(first - 1, child.end_lineno):
                         lines[i] = ""
                     if q in names:
                         lines[child.lineno - 1] = f"<rewritten {q}>"
